@@ -43,6 +43,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running test (multi-process harness etc)"
     )
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (skips where there is none)"
+    )
 
 
 @pytest.fixture(scope="session")
