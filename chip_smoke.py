@@ -7,10 +7,13 @@ Run on a machine with one CUDA GPU, from the repository root:
 It builds the CUDA kernels from ``phfpfac_tpu_torch/csrc``, holds each
 against its plain torch version on the card, drives the gphf CLI main
 path (``phfpfac_tpu_torch.cli.main``) over two dictionaries at the size
-users run, checks the output, times the kernels and prints one JSON
-line per phase.  The last line is ``{"ok": true, "device": {...}}``;
-any failed check raises and exits non-zero.  Without a GPU, or without
-the package beside it, it exits non-zero and prints no result.
+users run, then the paths of the other kernels and engines (the depth
+path, the exact-mode pair path, the banked-PHF path, ``--engine
+turbo|jnp``, the count scanners), checks every output, times the
+kernels and prints one JSON line per phase.  The last line is
+``{"ok": true, "device": {...}}``; any failed check raises and exits
+non-zero.  Without a GPU, or without the package beside it, it exits
+non-zero and prints no result.
 
 Inputs are generated from ``--seed`` with numpy in a temporary
 directory:
@@ -21,8 +24,12 @@ directory:
 * clamav5k: 5,000 binary signatures of 8-32 B (sigma 256: the s0x
   prologue and split steps), written as \\xNN escapes, over random bytes.
 
-Both run with streamnum 1 (4 shards) and width 4096; each corpus holds
-100,000 planted dictionary patterns.
+* lower50k: 50,000 distinct patterns of 4-32 B over ``a-z0-9`` (36
+  symbols, which build_pair_tables takes; ascii50k's 95 it
+  refuses), over text of the same alphabet, scanned in exact mode.
+
+All run with streamnum 1 (4 shards) and width 4096; each corpus holds
+100,000 planted dictionary patterns (lower50k's 16 MiB: 25,000).
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ SEG, HALO = 4096, 512  # the CLI's default segment cut
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 PLANTS = 100_000
 CHAIN_K = 8
+JNP_MIB = 4  # --engine jnp keeps [positions, 32] int32 rows: 128 B/position
 NO_LIBRARY = ("no single PyTorch call computes the automaton walk "
               "(a data-dependent chain of table gathers)")
 
@@ -56,7 +64,9 @@ def check(ok, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-MAX_ERR = {"plan_scan": 0, "depth_scan": 0}  # kernel vs plain, this run
+# kernel vs plain, this run
+MAX_ERR = {"plan_scan": 0, "depth_scan": 0, "pair_scan": 0, "phf_scan": 0,
+           "phf_scan_multi": 0}
 
 
 def agree(kernel: str, got, want, what: str) -> None:
@@ -74,21 +84,29 @@ def emit(phase: str, **kw) -> None:
 
 # ---- inputs ------------------------------------------------------------------
 
-def make_ascii50k(rng) -> list[bytes]:
-    """50,000 distinct printable-ASCII patterns of 4-32 B grown from
-    5,000 shared stems, plus 3 patterns of 40-64 B."""
-    printable = np.arange(32, 127, dtype=np.uint8)
-    stems = [bytes(rng.choice(printable, int(rng.integers(3, 11))))
+LOWER = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz0123456789", np.uint8)
+
+
+def make_stem_patterns(rng, alphabet, count=50_000, n_long=0) -> list[bytes]:
+    """``count`` distinct patterns of 4-32 B over ``alphabet`` grown
+    from 5,000 shared stems, plus ``n_long`` patterns of 40-64 B."""
+    stems = [bytes(rng.choice(alphabet, int(rng.integers(3, 11))))
              for _ in range(5000)]
     pats: dict[bytes, None] = {}
-    while len(pats) < 50_000:
+    while len(pats) < count:
         stem = stems[int(rng.integers(0, len(stems)))]
         n = int(rng.integers(max(4 - len(stem), 1), 33 - len(stem)))
-        pats[stem + bytes(rng.choice(printable, n))] = None
+        pats[stem + bytes(rng.choice(alphabet, n))] = None
     out = list(pats)
-    for _ in range(3):
-        out.append(bytes(rng.choice(printable, int(rng.integers(40, 65)))))
+    for _ in range(n_long):
+        out.append(bytes(rng.choice(alphabet, int(rng.integers(40, 65)))))
     return out
+
+
+def make_ascii50k(rng) -> list[bytes]:
+    """50,000 printable-ASCII patterns of 4-32 B plus 3 of 40-64 B."""
+    return make_stem_patterns(rng, np.arange(32, 127, dtype=np.uint8),
+                              n_long=3)
 
 
 def make_signatures(n_sigs: int, seed: int = 7) -> list[bytes]:
@@ -102,16 +120,18 @@ def make_signatures(n_sigs: int, seed: int = 7) -> list[bytes]:
     return sorted(sigs)
 
 
-def make_corpus(rng, pats, size, alphabet=None):
-    """``size`` bytes with PLANTS dictionary patterns at known places;
-    returns (corpus, planted (pos, 1-based id) pairs)."""
+def make_corpus(rng, pats, size, alphabet=None, plants=None):
+    """``size`` bytes with ``plants`` (default PLANTS) dictionary
+    patterns at known places; returns (corpus, planted (pos, 1-based
+    id) pairs)."""
+    plants = plants or PLANTS
     if alphabet is None:
         buf = rng.integers(0, 256, size, dtype=np.uint8)
     else:
         buf = rng.choice(alphabet, size)
-    slot = size // PLANTS
-    ids = rng.integers(0, len(pats), PLANTS)
-    ids[: min(3, PLANTS)] = np.arange(len(pats) - 3, len(pats))  # long ones
+    slot = size // plants
+    ids = rng.integers(0, len(pats), plants)
+    ids[: min(3, plants)] = np.arange(len(pats) - 3, len(pats))  # long ones
     planted = []
     for k, i in enumerate(ids):
         p = pats[int(i)]
@@ -167,12 +187,19 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_pos: int, table_bytes: int, bitmap: bool) -> float:
-    """Least time for the bytes the scan must move: 4 B of staged
-    stream read per position, the tables read once, and (bitmap mode)
-    4 B of counts plus 4 B of bitmap written per position."""
-    per_pos = 12 if bitmap else 4
+def bound_ms(n_pos: int, table_bytes: int, bitmap: bool, *,
+             read_b: int = 4, bitmap_rows: int = 1) -> float:
+    """Least time for the bytes the scan must move: ``read_b`` bytes of
+    input read per position (4 B of staged stream, or 1 B of raw
+    corpus), the tables read once, and (bitmap mode) 4 B of counts plus
+    4 B of bitmap per bitmap row written per position."""
+    per_pos = read_b + (4 + 4 * bitmap_rows if bitmap else 0)
     return (per_pos * n_pos + table_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def table_bytes(tables) -> int:
+    return sum(x.numel() * x.element_size() for x in vars(tables).values()
+               if isinstance(x, torch.Tensor))
 
 
 # ---- phases ------------------------------------------------------------------
@@ -270,7 +297,7 @@ def plain_match_count(kinds, matcher, corpus, input_size, device):
         del staged, cnt, _bits
         if kind == "split":
             total += len(matcher._host_literal_one(corpus, input_size,
-                                                   entry[1][3]))
+                                                   entry[1][4][1]))
     return total
 
 
@@ -328,8 +355,7 @@ def time_kernels(recs, depth_recs):
             st, t = it["staged"], it["scanner"].tables
             kw = extra(it)
             n_pos = st.numel() - TILE
-            tb = sum(x.numel() * 4 for x in vars(t).values()
-                     if isinstance(x, torch.Tensor))
+            tb = table_bytes(t)
             r["ms"] += cuda_ms(lambda: kernel(st, t, seg_bytes=SEG,
                                               halo_bytes=HALO, **kw))
             r["plain_ms"] += cuda_ms(lambda: plain(st, t, seg_bytes=SEG,
@@ -361,6 +387,184 @@ def time_kernels(recs, depth_recs):
     return k1, k2
 
 
+def padded_window(window: bytes, max_steps: int, device):
+    from phfpfac_tpu_torch.ops.common import pad_input
+    from phfpfac_tpu_torch.ops.staging import to_device_bytes
+
+    return to_device_bytes(pad_input(window, 1024, max_steps), device)
+
+
+def pair_parity(name, scanners, window, device):
+    """K3 against its plain version on the card (bitmap and count), on
+    every shard; returns per-shard records for the later phases."""
+    from phfpfac_tpu_torch.ops import pair as K3
+
+    recs = []
+    for si, sc in enumerate(scanners):
+        staged, n = scan_inputs(sc, window, device)
+        got = K3.pair_scan(staged, sc.tables)
+        agree("pair_scan", got, K3.pair_scan_plain(staged, sc.tables),
+              f"{name} shard {si}: pair bitmap")
+        agree("pair_scan",
+              [K3.pair_scan(staged, sc.tables, emit="count", shift=1)],
+              [K3.pair_scan_plain(staged, sc.tables, emit="count", shift=1)],
+              f"{name} shard {si}: pair count")
+        recs.append(dict(shard=si, scanner=sc, staged=staged, n=n,
+                         matches=int(got[0][:n].sum())))
+    return recs
+
+
+def phf_parity(name, singles, multi, window, max_steps, device):
+    """K4 (per shard) and K5 (all shards) against their plain versions
+    on the card; K5's bitmap rows must be K4's bitmaps."""
+    from phfpfac_tpu_torch.ops import scan as K4
+
+    data = padded_window(window, max_steps, device)
+    kw = dict(input_size=len(window), max_steps=max_steps)
+    seg = dict(seg_bytes=SEG, halo_bytes=HALO)
+    got5 = K4.phf_scan_multi(data, multi.tables, **kw, **seg)
+    agree("phf_scan_multi", got5,
+          K4.phf_scan_multi_plain(data, multi.tables, **kw, **seg),
+          f"{name}: multi bitmap+segment")
+    agree("phf_scan_multi",
+          [K4.phf_scan_multi(data, multi.tables, emit="count", **kw)],
+          [K4.phf_scan_multi_plain(data, multi.tables, emit="count", **kw)],
+          f"{name}: multi count")
+    for si, sc in enumerate(singles):
+        t = sc.tables
+        for g in (seg, {}):
+            got = K4.phf_scan(data, t, **kw, **g)
+            agree("phf_scan", got, K4.phf_scan_plain(data, t, **kw, **g),
+                  f"{name} shard {si}: phf bitmap ({g or 'exact'})")
+            if g:
+                check(torch.equal(got[1], got5[1][si]),
+                      f"{name} shard {si}: K5's row != K4's bitmap")
+        agree("phf_scan", [K4.phf_scan(data, t, emit="count", **kw)],
+              [K4.phf_scan_plain(data, t, emit="count", **kw)],
+              f"{name} shard {si}: phf count")
+    return data
+
+
+def pair_path(d, window, device):
+    """Exact mode through the pair scanners: PairShardScanner per shard
+    -> fetch_hit_bits -> decode_hits -> merge, held to the matcher's
+    result on the same bytes (the plan kernel)."""
+    from phfpfac_tpu_torch.ops.bitmap import decode_hits, fetch_hit_bits
+    from phfpfac_tpu_torch.ops.common import padded_steps
+    from phfpfac_tpu_torch.parallel.merge import merge_flat_matches
+
+    compiled, n = d["compiled"], len(window)
+    ms = padded_steps(compiled.max_pat_len)
+    padded = padded_window(window, ms, device)
+    t0 = time.perf_counter()
+    scans = [sc.scan(padded, n, d["cfg"], ms) for sc in d["pair_scanners"]]
+    flats = []
+    for (_cnt, bits), sh in zip(scans, compiled.shards):
+        pos, hb = fetch_hit_bits(bits, n)
+        flats.append(decode_hits(hb, pos, window, n, sh, ms))
+    got = merge_flat_matches(compiled, flats, n)
+    return got, time.perf_counter() - t0
+
+
+def phf_path(d, multi, device):
+    """The banked-PHF path over the whole corpus under the CLI's segment
+    cut: one K5 launch per 16 MiB window (the matcher's chunk geometry)
+    -> decode_bitmap per shard -> merge."""
+    from phfpfac_tpu_torch.ops.bitmap import decode_bitmap
+    from phfpfac_tpu_torch.ops.common import padded_steps
+    from phfpfac_tpu_torch.parallel.merge import merge_flat_matches
+
+    compiled, corpus, cfg = d["compiled"], d["corpus"], d["cfg"]
+    size = len(corpus)
+    ms = padded_steps(compiled.max_pat_len)
+    overlap = max(compiled.max_pat_len - 1, HALO)
+    wlen = CHUNK + overlap
+    per_shard = [[] for _ in compiled.shards]
+    first = None
+    t0 = time.perf_counter()
+    for base in range(0, size, CHUNK):
+        body = min(CHUNK, size - base)
+        wend = min(base + body + overlap, size)
+        window = corpus[base:wend]
+        window += b"\x00" * (wlen - len(window))
+        padded = padded_window(window, ms, device)
+        _cnt, bits = multi.scan(padded, wend - base, cfg, ms)
+        if first is None:
+            first = (padded, wend - base, bits)
+        host = bits.cpu().numpy()
+        for s, sh in enumerate(compiled.shards):
+            m = decode_bitmap(host[s], window, wend - base, sh, ms)
+            m = m[m[:, 0] < body]
+            m[:, 0] += base
+            per_shard[s].append(m)
+    got = merge_flat_matches(
+        compiled, [np.concatenate(parts) for parts in per_shard], size)
+    return got, time.perf_counter() - t0, first
+
+
+def time_new_kernels(pair_recs, singles, multi, data, n, max_steps):
+    """Per 16 MiB chunk: K3 and K4 summed over the 4 shards, K5 one
+    launch; kernel and plain times in bitmap and count mode, and the
+    bytes bound."""
+    from phfpfac_tpu_torch.ops import pair as K3
+    from phfpfac_tpu_torch.ops import scan as K4
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    def blank():
+        return dict(ms=0.0, plain_ms=0.0, count_ms=0.0, count_plain_ms=0.0,
+                    bound_ms=0.0, count_bound_ms=0.0, n_pos=0)
+
+    k3 = blank()
+    for it in pair_recs:
+        st, t = it["staged"], it["scanner"].tables
+        n_pos = st.numel() - TILE
+        k3["ms"] += cuda_ms(lambda: K3.pair_scan(st, t))
+        k3["plain_ms"] += cuda_ms(lambda: K3.pair_scan_plain(st, t), reps=2)
+        k3["count_ms"] += cuda_ms(lambda: K3.pair_scan(st, t, emit="count"))
+        k3["count_plain_ms"] += cuda_ms(
+            lambda: K3.pair_scan_plain(st, t, emit="count"), reps=2)
+        k3["bound_ms"] += bound_ms(n_pos, table_bytes(t), True)
+        k3["count_bound_ms"] += bound_ms(n_pos, table_bytes(t), False)
+        k3["n_pos"] += n_pos
+    k3["dead_exit"] = [it["scanner"].tables.dead_exit for it in pair_recs]
+
+    kw = dict(input_size=n, max_steps=max_steps)
+    seg = dict(seg_bytes=SEG, halo_bytes=HALO)
+    n_pos = data.shape[0] - max_steps
+
+    def phf(kernel, plain, t, rows):
+        r = blank()
+        r["ms"] = cuda_ms(lambda: kernel(data, t, **kw, **seg))
+        r["plain_ms"] = cuda_ms(lambda: plain(data, t, **kw, **seg), reps=2)
+        r["count_ms"] = cuda_ms(lambda: kernel(data, t, emit="count", **kw))
+        r["count_plain_ms"] = cuda_ms(
+            lambda: plain(data, t, emit="count", **kw), reps=2)
+        r["bound_ms"] = bound_ms(n_pos, table_bytes(t), True, read_b=1,
+                                 bitmap_rows=rows)
+        r["count_bound_ms"] = bound_ms(n_pos, table_bytes(t), False,
+                                       read_b=1)
+        r["n_pos"] = n_pos
+        return r
+
+    k4 = blank()
+    for sc in singles:
+        one = phf(K4.phf_scan, K4.phf_scan_plain, sc.tables, 1)
+        for k, v in one.items():
+            k4[k] += v
+    k5 = phf(K4.phf_scan_multi, K4.phf_scan_multi_plain, multi.tables,
+             multi.tables.n_shards)
+    return k3, k4, k5
+
+
+def host_seconds(fn) -> float:
+    """Host-clock seconds of ``fn`` up to the end of its device work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -374,8 +578,13 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from phfpfac_tpu_torch import _build, compile_dictionary
     from phfpfac_tpu_torch.frontend.patterns import Pattern
+    from phfpfac_tpu_torch.compile.pair import PairUnsupported
     from phfpfac_tpu_torch.ops import depth as K2
+    from phfpfac_tpu_torch.ops import engine_select, reference, turbo
+    from phfpfac_tpu_torch.ops import pair as K3
     from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops import scan as K4
+    from phfpfac_tpu_torch.ops.common import padded_steps, walk_limits
     from phfpfac_tpu_torch.oracle.ac import match_oracle
     from phfpfac_tpu_torch.parallel.matcher import Matcher
     from phfpfac_tpu_torch.parallel.merge import render_result_file
@@ -428,6 +637,45 @@ def main() -> int:
                               max_pat_len=sh.max_pat_len, kernel=k[0])
                          for sh, k in zip(compiled.shards, kinds)])
 
+        # lower50k: 36 symbols, scanned in exact mode over 16 MiB.  The
+        # pair tables take a shard only while they fit the
+        # entry's displacement field: more shards if it refuses
+        rng2 = np.random.default_rng(args.seed + 1)
+        pats = make_stem_patterns(rng2, LOWER)
+        lsize = min(CHUNK, size)
+        corpus, planted = make_corpus(rng2, pats, lsize, LOWER,
+                                      plants=PLANTS * lsize // size)
+        files = write_inputs(tmp, "lower50k", pats, corpus, False)
+        for num_shards in (4, 16, 64):
+            cfg = PfacConfig(width=4096, num_shards=num_shards,
+                             truncation="none")
+            t0 = time.perf_counter()
+            compiled = compile_dictionary(files[0], cfg)
+            t1 = time.perf_counter()
+            try:
+                pair_scanners = [K3.PairShardScanner(sh, device=device)
+                                 for sh in compiled.shards]
+            except PairUnsupported as e:
+                emit("dictionary", name="lower50k", num_shards=num_shards,
+                     pair_tables_refused=str(e))
+                continue
+            break
+        else:
+            check(False, "build_pair_tables takes lower50k at no shard count")
+        t2 = time.perf_counter()
+        lower = dict(pats=pats, corpus=corpus, planted=planted, files=files,
+                     cfg=cfg, compiled=compiled, pair_scanners=pair_scanners)
+        emit("dictionary", name="lower50k", patterns=len(pats),
+             corpus_bytes=lsize, num_shards=num_shards,
+             compile_seconds=t1 - t0, kernel_tables_seconds=t2 - t1,
+             shards=[dict(states=sh.state_num, finals=sh.final_state_num,
+                          max_pat_len=sh.max_pat_len,
+                          kernel="PairShardScanner",
+                          code_bits=sc.pt.code_bits,
+                          pair_steps=sc.pt.n_pair_steps,
+                          dead_exit=sc.tables.dead_exit)
+                     for sh, sc in zip(compiled.shards, pair_scanners)])
+
         # ---- 3. kernel parity on the card ----
         for name, d in dicts.items():
             window = d["corpus"][:CHUNK]
@@ -443,17 +691,47 @@ def main() -> int:
              modes=["bitmap+segment", "count"], equal=True,
              equal_to_plan_bitmap=True)
 
+        lower["recs"] = pair_parity("lower50k", lower["pair_scanners"],
+                                    lower["corpus"], device)
+        emit("parity", dictionary="lower50k", kernel="pair_scan",
+             modes=["bitmap+exact", "count"], equal=True,
+             matches=[r["matches"] for r in lower["recs"]])
+        clam_ms = padded_steps(clam["compiled"].max_pat_len)
+        clam_n = min(CHUNK, size)  # bytes of clamav5k's first window
+        phf_singles = [K4.PallasShardScanner(sh, device=device)
+                       for sh in clam["compiled"].shards]
+        phf_multi = K4.MultiShardScanner(clam["compiled"].shards,
+                                         device=device)
+        clam["phf_data"] = phf_parity(
+            "clamav5k", phf_singles, phf_multi, clam["corpus"][:CHUNK],
+            clam_ms, device)
+        emit("parity", dictionary="clamav5k", kernel="phf_scan",
+             modes=["bitmap+segment", "bitmap+exact", "count"], equal=True,
+             dead_exit=[sc.tables.dead_exit for sc in phf_singles])
+        emit("parity", dictionary="clamav5k", kernel="phf_scan_multi",
+             modes=["bitmap+segment", "count"], equal=True,
+             rows_equal_phf_scan=True, dead_exit=phf_multi.tables.dead_exit)
+
+        def reset_launches():
+            K1.launches = K2.launches = K3.launches = 0
+            K4.launches = K4.launches_multi = 0
+
+        def read_launches():
+            return dict(plan_scan=K1.launches, depth_scan=K2.launches,
+                        pair_scan=K3.launches, phf_scan=K4.launches,
+                        phf_scan_multi=K4.launches_multi)
+
         # ---- 4. main path: the gphf CLI ----
         launches = {}
         for name, d in dicts.items():
             pat_file, in_file = d["files"]
             out = os.path.join(tmp, f"{name}.out")
             flags = ["--escapes"] if d["escapes"] else []
-            K1.launches = K2.launches = 0
+            reset_launches()
             secs = run_cli([pat_file, 1, 4096, in_file, "-o", out,
                             "--quiet", *flags])
-            launches[name] = dict(plan_scan=K1.launches,
-                                  depth_scan=K2.launches)
+            launches[name] = read_launches()
+            d["out"], d["flags"], d["got"] = out, flags, None
             check(K1.launches > 0, f"{name}: the plan kernel never ran")
             got = read_output(out)
             got_set = set(map(tuple, got.tolist()))
@@ -466,7 +744,7 @@ def main() -> int:
             check(len(got) == want_lines,
                   f"{name}: {len(got)} output lines, plain bitmaps say "
                   f"{want_lines}")
-            d["cli_seconds"] = secs
+            d["cli_seconds"], d["got"] = secs, got
             # the match phase alone, on the tables built in phase 2
             t0 = time.perf_counter()
             d["matcher"].match_chunked(d["corpus"], input_size=input_size)
@@ -504,12 +782,11 @@ def main() -> int:
         cfg = PfacConfig(width=4096, num_shards=4, truncation="segment",
                          segment_bytes=6144, halo_bytes=HALO)
         dm = Matcher(clam["compiled"], cfg, device=device)
-        K1.launches = K2.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         got = dm.match_chunked(window)
         secs = time.perf_counter() - t0
-        launches["depth_path"] = dict(plan_scan=K1.launches,
-                                      depth_scan=K2.launches)
+        launches["depth_path"] = read_launches()
         check(K2.launches > 0, "the depth kernel never ran on its path")
         want_lines = 0
         for sc in dm._get_scanners():
@@ -524,7 +801,136 @@ def main() -> int:
              segment_bytes=6144, seconds=secs, matches=len(got),
              launches=launches["depth_path"])
 
+        # ---- 4b. the pair kernel's path: exact mode ----
+        window = lower["corpus"]
+        reset_launches()
+        got, secs = pair_path(lower, window, device)
+        launches["pair_path"] = read_launches()
+        check(K3.launches > 0, "the pair kernel never ran on its path")
+        lm = Matcher(lower["compiled"], lower["cfg"], device=device,
+                     train=window[:MIB])
+        want = lm.match_chunked(window)
+        check(all(isinstance(sc, K1.PlanShardScanner)
+                  for sc in lm._get_scanners()),
+              "lower50k's matcher took another kernel than plan")
+        check(np.array_equal(got, want),
+              "pair path != the matcher's plan-kernel result")
+        got_set = set(map(tuple, got.tolist()))
+        missing = [p for p in lower["planted"] if p not in got_set]
+        check(not missing,
+              f"lower50k: planted matches missing {missing[:5]}")
+        emit("pair_path", dictionary="lower50k", corpus_bytes=len(window),
+             truncation="none", seconds=secs, matches=len(got),
+             identical_to_plan_matcher=True,
+             planted_found=len(lower["planted"]),
+             launches=launches["pair_path"])
+
+        # ---- 4c. the banked-PHF kernels' path: the CLI's segment cut ----
+        reset_launches()
+        got, secs, (padded, n0, bits0) = phf_path(clam, phf_multi, device)
+        for si, sc in enumerate(phf_singles):
+            _cnt, b = sc.scan(padded, n0, clam["cfg"], clam_ms)
+            check(torch.equal(b, bits0[si]),
+                  f"phf path shard {si}: K4's bitmap != K5's row")
+        launches["phf_path"] = read_launches()
+        check(K4.launches > 0 and K4.launches_multi > 0,
+              "a banked-PHF kernel never ran on its path")
+        check(np.array_equal(got, clam["got"]),
+              "phf path != the plan kernel's CLI output")
+        del padded, bits0
+        emit("phf_path", dictionary="clamav5k",
+             corpus_bytes=len(clam["corpus"]), seconds=secs,
+             matches=len(got), identical_to_cli_output=True,
+             launches=launches["phf_path"])
+
+        # ---- 4d. the torch-op engines through the CLI ----
+        pat_file, in_file = clam["files"]
+        engines = {}
+        out = os.path.join(tmp, "clamav5k.turbo.out")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        engines["turbo_seconds"] = run_cli(
+            [pat_file, 1, 4096, in_file, "-o", out, "--quiet", "--escapes",
+             "--engine", "turbo"])
+        engines["turbo_peak_bytes"] = torch.cuda.max_memory_allocated()
+        check(not any(read_launches().values()),
+              "--engine turbo launched a kernel: it is the torch-op engine")
+        engines["turbo_corpus_bytes"] = len(clam["corpus"])
+        with open(out, "rb") as f, open(clam["out"], "rb") as g:
+            check(f.read() == g.read(),
+                  "--engine turbo output differs from --engine pallas")
+        # --engine jnp keeps [positions, 32] int32 match rows per shard
+        # (128 B per position: 8 GiB at 64 MiB), so it runs on a cut
+        jsize = min(JNP_MIB * MIB, len(clam["corpus"]))
+        j_in = os.path.join(tmp, "clamav5k.jnp.in")
+        with open(j_in, "wb") as f:
+            f.write(clam["corpus"][:jsize] + b"\n")
+        outs = {}
+        for engine in ("pallas", "jnp"):
+            outs[engine] = os.path.join(tmp, f"clamav5k.{engine}.small.out")
+            torch.cuda.reset_peak_memory_stats()
+            secs = run_cli([pat_file, 1, 4096, j_in, "-o", outs[engine],
+                            "--quiet", "--escapes", "--engine", engine])
+            engines[f"{engine}_small_seconds"] = secs
+            engines[f"{engine}_small_peak_bytes"] = \
+                torch.cuda.max_memory_allocated()
+        engines["jnp_corpus_bytes"] = jsize
+        with open(outs["jnp"], "rb") as f, open(outs["pallas"], "rb") as g:
+            check(f.read() == g.read(),
+                  "--engine jnp output differs from --engine pallas")
+        counts = clam["matcher"].count_matches(
+            clam["corpus"], input_size=len(clam["corpus"]))
+        check(int(counts.sum()) == len(clam["got"]),
+              f"count_matches sums to {int(counts.sum())}, the CLI wrote "
+              f"{len(clam['got'])} lines")
+        sh0 = clam["compiled"].shards[0]
+        best = engine_select.best_count_scanner(
+            sh0, clam_ms, train=clam["corpus"][:MIB], device=device)
+        check(isinstance(best, K1.PlanCountScan),
+              "best_count_scanner: not the plan kernel for clamav5k")
+        staged = best.prepare(clam["phf_data"], clam_n)
+        total = int(best.scan(staged, clam_n, 0))
+        check(total == int(K1.plan_scan_plain(staged, best.scanner.tables,
+                                              emit="count")),
+              "best_count_scanner != its plain count")
+        check(total == int(engine_select.xla_count_scanner(
+            sh0, clam_ms, device=device)(clam["phf_data"], clam_n, 0)),
+              "best_count_scanner != the torch-op count scanner")
+        del staged
+        emit("engines", dictionary="clamav5k", identical_to_pallas=True,
+             count_matches_sum=int(counts.sum()),
+             best_count_scanner=type(best).__name__,
+             shard0_count_first_window=total, **engines)
+
+        # per-shard seconds of the two torch-op engines on their own
+        cfg = clam["cfg"]
+        tt = turbo.build_turbo_tables(sh0)
+        engine_secs = dict(
+            turbo_bytes=clam_n,
+            scan_shard_turbo=host_seconds(lambda: turbo.scan_shard_turbo(
+                sh0, clam["phf_data"], clam_n, cfg, max_steps=clam_ms,
+                turbo_tables=tt, device=device)))
+        small = padded_window(clam["corpus"][:jsize], clam_ms, device)
+        limits = walk_limits(small.shape[0] - clam_ms, jsize,
+                             sh0.max_pat_len, cfg)
+        engine_secs.update(
+            reference_bytes=jsize,
+            reference_scan_shard=host_seconds(lambda: reference.scan_shard(
+                sh0, small, limits, jsize, slots=sh0.max_pat_len,
+                device=device)))
+        del small
+
     # ---- 5. times ----
+    k3, k4, k5 = time_new_kernels(lower["recs"], phf_singles, phf_multi,
+                                  clam["phf_data"], clam_n, clam_ms)
+    for label, r, per in (
+            ("pair_scan/lower50k", k3, "16 MiB chunk, 4 shards"),
+            ("phf_scan/clamav5k", k4, "16 MiB chunk, 4 shards"),
+            ("phf_scan_multi/clamav5k", k5,
+             "16 MiB chunk, one launch for 4 shards")):
+        emit("times", kernel=label, per=per, **r)
+    emit("times", kernel="torch engines, one shard of clamav5k",
+         **engine_secs)
     k1, _ = time_kernels(dicts["ascii50k"]["recs"], [])
     k1c, k2 = time_kernels(clam["recs"], clam["depth_recs"])
     for label, r in (("plan_scan/ascii50k", k1), ("plan_scan/clamav5k", k1c),
@@ -555,6 +961,30 @@ def main() -> int:
              plain_ms=k2["plain_ms"],
              bound_ms=k2["bound_ms"], bound_by="bytes", library_ms=None,
              library_note=NO_LIBRARY, detail={"clamav5k": k2}),
+        dict(name="pair_scan", route="cuda",
+             source="phfpfac_tpu_torch/csrc/pair_scan.cu",
+             replaces="phfpfac_tpu/ops/pallas_pair.py:119",
+             launches=launches["pair_path"]["pair_scan"],
+             max_abs_err=MAX_ERR["pair_scan"], ms=k3["ms"],
+             plain_ms=k3["plain_ms"],
+             bound_ms=k3["bound_ms"], bound_by="bytes", library_ms=None,
+             library_note=NO_LIBRARY, detail={"lower50k": k3}),
+        dict(name="phf_scan", route="cuda",
+             source="phfpfac_tpu_torch/csrc/phf_scan.cu",
+             replaces="phfpfac_tpu/ops/pallas_scan.py:132",
+             launches=launches["phf_path"]["phf_scan"],
+             max_abs_err=MAX_ERR["phf_scan"], ms=k4["ms"],
+             plain_ms=k4["plain_ms"],
+             bound_ms=k4["bound_ms"], bound_by="bytes", library_ms=None,
+             library_note=NO_LIBRARY, detail={"clamav5k": k4}),
+        dict(name="phf_scan_multi", route="cuda",
+             source="phfpfac_tpu_torch/csrc/phf_scan.cu",
+             replaces="phfpfac_tpu/ops/pallas_scan.py:358",
+             launches=launches["phf_path"]["phf_scan_multi"],
+             max_abs_err=MAX_ERR["phf_scan_multi"], ms=k5["ms"],
+             plain_ms=k5["plain_ms"],
+             bound_ms=k5["bound_ms"], bound_by="bytes", library_ms=None,
+             library_note=NO_LIBRARY, detail={"clamav5k": k5}),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

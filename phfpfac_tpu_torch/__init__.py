@@ -11,8 +11,13 @@ __version__ = "0.1.0"
 
 from phfpfac_tpu_torch.compile.tables import (  # noqa: F401
     CompiledDictionary,
+    ShardTables,
     compile_dictionary,
     compile_patterns,
+)
+from phfpfac_tpu_torch.frontend.patterns import (  # noqa: F401
+    read_patterns,
+    shard_patterns,
 )
 from phfpfac_tpu_torch.parallel.matcher import Matcher  # noqa: F401
 from phfpfac_tpu_torch.utils.config import PfacConfig  # noqa: F401

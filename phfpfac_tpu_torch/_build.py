@@ -24,7 +24,7 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("plan_scan", "depth_scan")
+SOURCES = ("plan_scan", "depth_scan", "pair_scan", "phf_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

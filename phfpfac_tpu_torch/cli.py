@@ -21,6 +21,10 @@ Notes on fidelity:
   halo (master_kernel.cu:8-11); ``--exact`` removes the truncation.
 * ``--device cpu`` runs the kernels' plain torch versions; the default
   is the CUDA device, and its absence is an error.
+* ``--engine turbo|jnp`` scan with torch ops instead of the kernels.
+  ``--charset``, ``--save-tables``, ``--load-tables``, ``--profile``,
+  ``--mesh`` and the multi-host flags are not ported and exit with the
+  ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -64,8 +68,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "plain torch versions")
     p.add_argument("--engine", choices=["turbo", "jnp", "pallas"],
                    default="pallas",
-                   help="pallas = the bitmap kernels (plan/depth); "
-                        "turbo/jnp are not ported yet")
+                   help="pallas = the hand-written CUDA kernels "
+                        "(plan/pair/depth, banked-PHF), in 16 MiB chunks; "
+                        "turbo = the torch-op table walk with survivor "
+                        "compaction; jnp = the dense torch-op walk with "
+                        "[positions, max pattern length] match rows "
+                        "(both scan the input in one piece)")
     p.add_argument("--exact", action="store_true",
                    help="disable reference segment+halo walk truncation")
     p.add_argument("--full-input", action="store_true",
@@ -94,9 +102,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.engine != "pallas":
-        parser.error(f"--engine {args.engine} is not ported yet "
-                     "(ROADMAP.md queue 1, 'XLA engines as torch ops')")
     for flag, item in _NOT_PORTED.items():
         if getattr(args, flag):
             parser.error(f"--{flag.replace('_', '-')} is not ported yet "
@@ -134,7 +139,8 @@ def main(argv: list[str] | None = None) -> int:
 
     with open(args.input_file, "rb") as f:
         data = f.read()
-    matcher = Matcher(compiled, cfg, device=device, timer=timer)
+    matcher = Matcher(compiled, cfg, engine=args.engine, device=device,
+                      timer=timer)
     # big inputs scan in pipelined chunks (match_chunked falls through
     # to one-shot when small)
     text = render_result_file(

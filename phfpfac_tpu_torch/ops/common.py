@@ -3,11 +3,25 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from phfpfac_tpu_torch.utils.config import PfacConfig
 
 
 STEP_BUCKET = 8
+
+
+def resolve_device(device=None) -> torch.device:
+    """The scan device: CUDA unless the caller names another.  Raises
+    when CUDA is asked for (or defaulted to) and absent — the port never
+    drops to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "torch versions of the kernels"
+        )
+    return dev
 
 
 def padded_steps(max_pat_len: int) -> int:

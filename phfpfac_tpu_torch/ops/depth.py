@@ -32,6 +32,7 @@ from phfpfac_tpu_torch.compile.depth import (
 )
 from phfpfac_tpu_torch.compile.tables import ShardTables
 from phfpfac_tpu_torch.ops.plan import (
+    CountScan,
     check_operand,
     count_total,
     popcount32,
@@ -201,3 +202,22 @@ class DepthShardScanner:
         return depth_scan(self.stage(data, input_size, max_steps),
                           self.tables, input_size=input_size,
                           seg_bytes=seg, halo_bytes=cfg.halo_bytes)
+
+
+class DepthCountScan(CountScan):
+    """Count-mode depth scan."""
+
+    def __init__(self, shard: ShardTables, max_steps: int, *, device):
+        super().__init__(max_steps)
+        self.scanner = DepthShardScanner(shard, device=device)
+        self.dt = self.scanner.dt
+
+    def scan(self, staged, input_size, shift):
+        return depth_scan(staged, self.scanner.tables,
+                          input_size=int(input_size), emit="count",
+                          shift=shift)
+
+
+def depth_count_scanner(shard: ShardTables, max_steps: int, *,
+                        device) -> DepthCountScan:
+    return DepthCountScan(shard, max_steps, device=device)

@@ -320,3 +320,47 @@ class PlanShardScanner:
         data = to_device_bytes(data_padded, self.device)
         return plan_scan(self.stage(data, input_size, max_steps),
                          self.tables, seg_bytes=seg, halo_bytes=halo)
+
+
+class CountScan:
+    """Count-mode scan over one bitmap scanner's tables, exact mode:
+    fn(data_padded, input_size, shift) -> int64 [1] total over positions
+    >= shift, also as ``prepare`` (stage once) + ``scan``.  A subclass
+    builds ``self.scanner`` and defines ``scan``."""
+
+    scanner = None
+
+    def __init__(self, max_steps: int):
+        self.max_steps = max_steps
+
+    def prepare(self, data_padded, input_size):
+        data = to_device_bytes(data_padded, self.scanner.device)
+        return self.scanner.stage(data, input_size, self.max_steps)
+
+    def scan(self, staged, input_size, shift):
+        raise NotImplementedError
+
+    def __call__(self, data_padded, input_size, shift):
+        return self.scan(self.prepare(data_padded, input_size),
+                         input_size, shift)
+
+
+class PlanCountScan(CountScan):
+    """Count-mode plan scan."""
+
+    def __init__(self, shard: ShardTables, max_steps: int, *, device,
+                 train=None, pt=None):
+        super().__init__(max_steps)
+        self.scanner = PlanShardScanner(shard, device=device, train=train,
+                                        pt=pt)
+        self.pt = self.scanner.pt
+
+    def scan(self, staged, input_size, shift):
+        return plan_scan(staged, self.scanner.tables, emit="count",
+                         shift=shift)
+
+
+def plan_count_scanner(shard: ShardTables, max_steps: int, *, device,
+                       train=None, pt=None) -> PlanCountScan:
+    return PlanCountScan(shard, max_steps, device=device, train=train,
+                         pt=pt)

@@ -26,7 +26,11 @@ def _files(tmp_path, seed=3):
 
 
 @pytest.mark.parametrize("flags", [[], ["--exact"], ["--full-input"],
-                                   ["--escapes"]])
+                                   ["--escapes"], ["--engine", "turbo"],
+                                   ["--engine", "jnp"],
+                                   ["--engine", "turbo", "--exact"],
+                                   ["--engine", "jnp", "--exact"],
+                                   ["--exact", "--num-shards", "3"]])
 def test_cli_output_matches_jax(tmp_path, flags):
     pat, inp = _files(tmp_path)
     mine, theirs = tmp_path / "torch.txt", tmp_path / "jax.txt"
@@ -48,11 +52,41 @@ def test_cli_phase_report(tmp_path, capsys):
     assert "The throughput is" in text
 
 
-@pytest.mark.parametrize("flags", [["--engine", "turbo"], ["--charset"],
-                                   ["--mesh"], ["--load-tables", "x.npz"]])
+@pytest.mark.parametrize("flags", [["--save-tables", "x.npz"], ["--charset"],
+                                   ["--mesh"], ["--load-tables", "x.npz"],
+                                   ["--profile", "dir"],
+                                   ["--coordinator", "h:1"],
+                                   ["--num-processes", "2"]])
 def test_unported_flags_exit_naming_the_roadmap(tmp_path, capsys, flags):
     pat, inp = _files(tmp_path)
     with pytest.raises(SystemExit) as e:
         main([str(pat), "1", "256", str(inp), "--device", "cpu", *flags])
     assert e.value.code == 2
     assert "ROADMAP.md" in capsys.readouterr().err
+
+
+def test_exact_reaches_the_pair_scanner(tmp_path, monkeypatch):
+    """--exact tries the pair scanner where build_plan_tables refuses a
+    shard; the output file stays byte-identical to the JAX CLI's."""
+    from phfpfac_tpu.ops import pallas_plan as jax_plan
+    from phfpfac_tpu_torch.compile.pair import PairUnsupported
+    from phfpfac_tpu_torch.ops import pair
+    from phfpfac_tpu_torch.parallel import matcher
+
+    def refuse(*a, **k):
+        raise PairUnsupported("plan tables refused (test)")
+
+    monkeypatch.setattr(matcher, "PlanShardScanner", refuse)
+    monkeypatch.setattr(jax_plan, "PlanShardScanner", refuse)
+    scans = []
+    real = pair.PairShardScanner.scan
+    monkeypatch.setattr(
+        pair.PairShardScanner, "scan",
+        lambda self, *a, **k: scans.append(1) or real(self, *a, **k))
+    pat, inp = _files(tmp_path)
+    mine, theirs = tmp_path / "torch.txt", tmp_path / "jax.txt"
+    common = [str(pat), "1", "256", str(inp), "--quiet", "--exact"]
+    assert main([*common, "-o", str(mine), "--device", "cpu"]) == 0
+    assert jax_main([*common, "-o", str(theirs)]) == 0
+    assert mine.read_bytes() == theirs.read_bytes()
+    assert len(scans) == 4  # one per shard

@@ -15,7 +15,10 @@ import torch
 from phfpfac_tpu_torch import Matcher, PfacConfig, compile_patterns
 from phfpfac_tpu_torch.frontend.patterns import Pattern
 from phfpfac_tpu_torch.ops import depth as K2
+from phfpfac_tpu_torch.ops import engine_select
+from phfpfac_tpu_torch.ops import pair as K3
 from phfpfac_tpu_torch.ops import plan as K1
+from phfpfac_tpu_torch.ops import scan as K4
 from phfpfac_tpu_torch.ops.common import pad_input, padded_steps
 from phfpfac_tpu_torch.ops.staging import to_device_bytes
 from phfpfac_tpu_torch.oracle.ac import match_oracle
@@ -123,6 +126,156 @@ def test_wrappers_refuse_bad_inputs(dev):
         K1.plan_scan(staged, ps.tables, seg_bytes=100)
     with pytest.raises(ValueError):
         K2.depth_scan(dstaged[:, :64], ds.tables, input_size=n)
+
+
+def _shards(name, dev, shards):
+    words, data = _dictionary(name)
+    cfg = PfacConfig(width=4096, num_shards=shards)
+    compiled = compile_patterns(
+        [Pattern(i + 1, w) for i, w in enumerate(words)], cfg)
+    ms = padded_steps(compiled.max_pat_len)
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    return compiled, padded, len(data), ms
+
+
+@pytest.mark.parametrize("name", ["dense", "s0"])
+def test_pair_kernel_equals_plain_and_plan(name, dev):
+    compiled, padded, n, ms = _shards(name, dev, 1)
+    sh = compiled.shards[0]
+    sc = K3.PairShardScanner(sh, device=dev)
+    staged = sc.stage(padded, n, ms)
+    before = K3.launches
+    for dead_exit in (sc.tables.dead_exit, False):
+        sc.tables.dead_exit = dead_exit  # both walks: with and without exit
+        got = K3.pair_scan(staged, sc.tables)
+        want = K3.pair_scan_plain(staged, sc.tables)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[0].sum()) > 0
+        for shift in (0, 1, 5):
+            assert int(K3.pair_scan(staged, sc.tables, emit="count",
+                                    shift=shift)) == \
+                int(K3.pair_scan_plain(staged, sc.tables, emit="count",
+                                       shift=shift))
+    ps = K1.PlanShardScanner(sh, device=dev)
+    plan_bits = K1.plan_scan(ps.stage(padded, n, ms), ps.tables)[1]
+    assert torch.equal(got[1][:n], plan_bits[:n])
+    torch.cuda.synchronize()
+    assert K3.launches == before + 8
+
+
+@pytest.mark.parametrize("name", ["dense", "s0x"])
+def test_phf_kernels_equal_plain(name, dev):
+    compiled, padded, n, ms = _shards(name, dev, 3)
+    multi = K4.MultiShardScanner(compiled.shards, device=dev)
+    singles = [K4.PallasShardScanner(sh, device=dev)
+               for sh in compiled.shards]
+    before, before_multi = K4.launches, K4.launches_multi
+    kw = dict(input_size=n, max_steps=ms)
+    for seg, halo in GEOMS + [(100, 3)]:
+        g = dict(seg_bytes=seg, halo_bytes=halo, **kw)
+        got = K4.phf_scan_multi(padded, multi.tables, **g)
+        want = K4.phf_scan_multi_plain(padded, multi.tables, **g)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert int(got[0].sum()) > 0
+        for s, one in enumerate(singles):
+            c, b = K4.phf_scan(padded, one.tables, **g)
+            cp, bp = K4.phf_scan_plain(padded, one.tables, **g)
+            assert torch.equal(c, cp) and torch.equal(b, bp)
+            assert torch.equal(b, got[1][s])
+        assert int(K4.phf_scan_multi(padded, multi.tables, emit="count",
+                                     shift=3, **g)) == \
+            int(K4.phf_scan_multi_plain(padded, multi.tables, emit="count",
+                                        shift=3, **g))
+    for one in singles:
+        assert int(K4.phf_scan(padded, one.tables, emit="count", shift=1,
+                               **kw)) == \
+            int(K4.phf_scan_plain(padded, one.tables, emit="count", shift=1,
+                                  **kw))
+    # without the early exit the walk gives the same bits
+    multi.tables.dead_exit = False
+    got2 = K4.phf_scan_multi(padded, multi.tables, **kw)
+    want2 = K4.phf_scan_multi_plain(padded, multi.tables, **kw)
+    assert torch.equal(got2[1], want2[1])
+    torch.cuda.synchronize()
+    n_geoms = len(GEOMS) + 1
+    assert K4.launches == before + 3 * n_geoms + 3
+    assert K4.launches_multi == before_multi + 2 * n_geoms + 1
+
+
+def test_new_wrappers_refuse_bad_inputs(dev):
+    compiled, padded, n, ms = _shards("dense", dev, 1)
+    sh = compiled.shards[0]
+    pair = K3.PairShardScanner(sh, device=dev)
+    staged = pair.stage(padded, n, ms)
+    with pytest.raises(ValueError):
+        K3.pair_scan(staged.to(torch.int64), pair.tables)
+    with pytest.raises(ValueError):
+        K3.pair_scan(staged[:, :64], pair.tables)
+    cpu_tables = K3.PairShardScanner(sh, device="cpu").tables
+    with pytest.raises(ValueError):
+        K3.pair_scan(staged, cpu_tables)  # tables on another device
+    phf = K4.PallasShardScanner(sh, device=dev)
+    kw = dict(input_size=n, max_steps=ms)
+    with pytest.raises(ValueError):
+        K4.phf_scan(padded.to(torch.int32), phf.tables, **kw)
+    with pytest.raises(ValueError):
+        K4.phf_scan(padded[:-1], phf.tables, **kw)
+    with pytest.raises(ValueError):
+        K4.phf_scan(padded, phf.tables, input_size=n, max_steps=40)
+    with pytest.raises(ValueError):
+        K4.phf_scan(padded, K4.PallasShardScanner(sh, device="cpu").tables,
+                    **kw)
+
+
+@pytest.mark.parametrize("engine", ["turbo", "jnp"])
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_torch_engines_on_cuda_equal_oracle(trunc, engine, dev):
+    words, data = _dictionary("dense")
+    cfg = PfacConfig(width=256, num_shards=2, truncation=trunc,
+                     segment_bytes=512, halo_bytes=8)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    m = Matcher(compile_patterns(pats, cfg), cfg, engine=engine)
+    data = data[:20000]
+    got = [tuple(x) for x in m.match(data)]
+    assert got == match_oracle(pats, data, cfg)
+    assert int(m.count_matches(data).sum()) == len(got)
+
+
+def test_count_scanners_on_cuda_agree(dev):
+    compiled, padded, n, ms = _shards("dense", dev, 1)
+    sh = compiled.shards[0]
+    best = engine_select.best_count_scanner(sh, ms)
+    assert isinstance(best, K1.PlanCountScan)
+    want = int(best(padded, n, 1))
+    for make in (K3.pair_count_scanner, K2.depth_count_scanner,
+                 K4.pallas_count_scanner, engine_select.xla_count_scanner):
+        assert int(make(sh, ms, device=dev)(padded, n, 1)) == want
+
+
+def test_matcher_multi_and_pair_routes_on_cuda(dev, monkeypatch):
+    from phfpfac_tpu_torch.compile.pair import PairUnsupported
+    from phfpfac_tpu_torch.parallel import matcher as M
+
+    words, data = _dictionary("dense")
+    data = data[:20000]
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    cfg = PfacConfig(width=256, num_shards=3, truncation="none")
+    want = match_oracle(pats, data, cfg)
+
+    def refuse(*a, **k):
+        raise PairUnsupported("refused for the test")
+
+    monkeypatch.setattr(M, "PlanShardScanner", refuse)
+    before = K3.launches
+    m = Matcher(compile_patterns(pats, cfg), cfg)
+    assert [tuple(x) for x in m.match_chunked(data, chunk_bytes=4096)] == want
+    assert K3.launches > before
+    monkeypatch.setattr(Matcher, "_shard_scanner_one",
+                        lambda self, shard, pt=None: None)
+    before = K4.launches_multi
+    m = Matcher(compile_patterns(pats, cfg), cfg)
+    assert [tuple(x) for x in m.match_chunked(data, chunk_bytes=4096)] == want
+    assert K4.launches_multi > before
 
 
 @pytest.mark.parametrize("trunc", ["segment", "none"])

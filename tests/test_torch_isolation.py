@@ -21,6 +21,21 @@ m = P.Matcher(P.compile_patterns(pats, cfg), cfg, device="cpu")
 data = b"ushers and she said he" * 300
 got = [tuple(x) for x in m.match(data).tolist()]
 assert got == match_oracle(pats, data, cfg), "mismatch"
+for engine in ("turbo", "jnp"):
+    e = P.Matcher(m.compiled, cfg, engine=engine, device="cpu")
+    assert [tuple(x) for x in e.match(data).tolist()] == got, engine
+assert int(m.count_matches(data).sum()) == len(got)
+from phfpfac_tpu_torch import convert
+from phfpfac_tpu_torch.ops import engine_select, pair, reference, scan, turbo
+from phfpfac_tpu_torch.ops.common import pad_input, padded_steps
+sh = m.compiled.shards[0]
+ms = padded_steps(sh.max_pat_len)
+padded = pad_input(data, 1024, ms)
+total = int(engine_select.best_count_scanner(sh, ms, device="cpu")(
+    padded, len(data), 0))
+for make in (pair.pair_count_scanner, scan.pallas_count_scanner,
+             engine_select.xla_count_scanner):
+    assert int(make(sh, ms, device="cpu")(padded, len(data), 0)) == total
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                 ("jax", "jaxlib", "phfpfac_tpu") and sys.modules[k])
 assert not loaded, loaded
@@ -46,7 +61,10 @@ def _imports(path: pathlib.Path):
 def test_no_jax_imports_in_port_sources():
     files = sorted((REPO / "phfpfac_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 20
+    assert len(files) > 25
+    names = {f.name for f in files}
+    assert {"turbo.py", "reference.py", "scan.py", "pair.py",
+            "engine_select.py"} <= names
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in BANNED, f"{f}: imports {mod}"

@@ -1,5 +1,6 @@
-"""The port's Matcher vs the JAX Matcher (pallas engine, interpret mode)
-and the oracle: exact equality of the (position, pattern id) lists."""
+"""The port's Matcher vs the JAX Matcher (every engine; the Pallas
+kernels in interpret mode) and the oracle: exact equality of the
+(position, pattern id) lists, the match rows and the counts."""
 
 import numpy as np
 import pytest
@@ -13,7 +14,10 @@ from phfpfac_tpu_torch import Matcher, PfacConfig, compile_patterns
 from phfpfac_tpu_torch import convert
 from phfpfac_tpu_torch.frontend.patterns import Pattern
 from phfpfac_tpu_torch.ops.depth import DepthShardScanner
+from phfpfac_tpu_torch.ops.pair import PairShardScanner
 from phfpfac_tpu_torch.ops.plan import PlanShardScanner
+from phfpfac_tpu_torch.ops.scan import MultiShardScanner
+from phfpfac_tpu_torch.ops.turbo import TurboTables
 from phfpfac_tpu_torch.oracle.ac import match_oracle
 
 
@@ -84,7 +88,8 @@ def test_long_pattern_split_host_tail(trunc):
     got, want, oracle, tm = _both(words, data, 1, trunc)
     assert got == want == oracle
     (entry,) = tm._get_scanners()
-    assert entry[0] == "split" and len(entry[1][3]) == 3
+    kind, host_pats = entry[1][4]  # the tail's engine: a host search
+    assert entry[0] == "split" and kind == "host" and len(host_pats) == 3
 
 
 def test_non_power_of_two_segment_rides_the_depth_kernel():
@@ -112,19 +117,177 @@ def test_compiled_from_jax_npz(tmp_path):
 
 
 def test_unported_paths_raise():
-    # more than 8 patterns past the bitmap: the turbo tail engine
-    words, data = _corpus(41, n_long=10, n_words=40)
+    # upload-free chunking (stage_for_chunked / device_data) is the one
+    # single-device Matcher path the port does not have
+    words, data = _corpus(3, n_words=20)
     cfg = PfacConfig(width=256, num_shards=1)
     tm = Matcher(compile_patterns(
         [Pattern(i + 1, w) for i, w in enumerate(words)], cfg), cfg,
         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert not hasattr(tm, "stage_for_chunked")
+    with pytest.raises(TypeError, match="device_data"):
+        tm.match_chunked(data, device_data=data)
+    with pytest.raises(ValueError, match="engine"):
+        Matcher(tm.compiled, cfg, engine="xla", device="cpu")
+
+
+def _matchers(words, shards, trunc, engine, **kw):
+    tcfg = _cfg(PfacConfig, shards, trunc)
+    tm = Matcher(compile_patterns(
+        [Pattern(i + 1, w) for i, w in enumerate(words)], tcfg), tcfg,
+        engine=engine, device="cpu", **kw)
+    jcfg = _cfg(JaxConfig, shards, trunc, interpret=True)
+    jm = JaxMatcher(jax_compile(
+        [JaxPattern(i + 1, w) for i, w in enumerate(words)], jcfg), jcfg,
+        engine=engine, **kw)
+    return tm, jm
+
+
+def _oracle(words, data, tm):
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    return np.asarray(match_oracle(pats, data, tm.config),
+                      np.int64).reshape(-1, 2)
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+@pytest.mark.parametrize("engine", ["pallas", "turbo", "jnp"])
+def test_engines_equal_jax_and_oracle(engine, trunc):
+    words, data = _corpus(12, size=3000)
+    tm, jm = _matchers(words, 3, trunc, engine)
+    got = tm.match(data)
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    # only the kernel engine chunks; the others fall through to match
+    np.testing.assert_array_equal(tm.match_chunked(data, chunk_bytes=1024),
+                                  got)
+    assert len(got) > 100
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_count_matches_equals_jax(trunc):
+    words, data = _corpus(13, size=3000)
+    tm, jm = _matchers(words, 3, trunc, "turbo")
+    got = tm.count_matches(data)
+    np.testing.assert_array_equal(got, jm.count_matches(data))
+    assert got.dtype == np.int64 and got.shape == (len(data),)
+    assert got.sum() == len(tm.match(data))
+
+
+def test_count_matches_and_turbo_on_compaction_overflow():
+    # every walker survives the full-width steps: the turbo scan reports
+    # overflow and the dense engine answers, exactly
+    words = [b"a" * k for k in range(1, 13)]
+    data = b"a" * 2500
+    tm, jm = _matchers(words, 1, "none", "turbo", turbo_cap_frac=64)
+    np.testing.assert_array_equal(tm.count_matches(data),
+                                  jm.count_matches(data))
+    got = tm.match(data)
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+
+
+@pytest.mark.parametrize("engine", ["pallas", "turbo", "jnp"])
+def test_match_rows_equals_jax(engine):
+    words, data = _corpus(14, size=2000)
+    tm, jm = _matchers(words, 2, "segment", engine)
+    got, want = tm.match_rows(data), jm.match_rows(data)
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+        assert (g >= 0).any()
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_long_tail_of_more_than_8_patterns_rides_the_turbo_engine(trunc):
+    words, data = _corpus(41, n_long=10, n_words=40)
+    tm, jm = _matchers(words, 1, trunc, "pallas")
+    got = tm.match(data)
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    (entry,) = tm._get_scanners()
+    assert entry[0] == "split"
+    assert isinstance(entry[1][4], TurboTables)
+    chunked = tm.match_chunked(data, chunk_bytes=1024)
+    np.testing.assert_array_equal(chunked, got)
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_all_long_dictionary_goes_multi_then_turbo(trunc):
+    # no bitmap kernel takes any shard -> the multi kernel, which stops
+    # at 32 steps -> the turbo engine answers
+    rng = np.random.default_rng(8)
+    alpha = np.frombuffer(b"abc", dtype=np.uint8)
+    words = list(dict.fromkeys(
+        bytes(alpha[rng.integers(0, 3, int(rng.integers(33, 48)))])
+        for _ in range(12)))
+    text = bytearray(alpha[rng.integers(0, 3, 3000)])
+    for j, w in enumerate(words):
+        o = 240 * (j + 1) - 20
+        text[o:o + len(w)] = w
+    data = bytes(text)
+    tm, jm = _matchers(words, 2, trunc, "pallas")
+    got = tm.match_chunked(data, chunk_bytes=1024)
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    assert tm._get_pallas_scanner()[0] == jm._get_pallas_scanner()[0] \
+        == "multi"
+    assert len(got) >= 6
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_multi_kernel_branch_equals_jax(trunc, monkeypatch):
+    # reached by refusing every per-shard scanner in both packages
+    words, data = _corpus(15, size=2500)
+    tm, jm = _matchers(words, 3, trunc, "pallas")
+    monkeypatch.setattr(Matcher, "_shard_scanner_one",
+                        lambda self, shard, pt=None: None)
+    monkeypatch.setattr(JaxMatcher, "_shard_scanner_one",
+                        lambda self, shard, pt=None: None)
+    got = tm.match(data)
+    assert isinstance(tm._get_pallas_scanner()[1], MultiShardScanner)
+    assert jm._get_pallas_scanner()[0] == "multi"
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    np.testing.assert_array_equal(tm.match_chunked(data, chunk_bytes=1024),
+                                  got)
+
+
+def test_exact_mode_tries_the_pair_kernel_after_plan(monkeypatch):
+    from phfpfac_tpu.ops import pallas_plan as jax_plan
+    from phfpfac_tpu_torch.compile.pair import PairUnsupported
+    from phfpfac_tpu_torch.parallel import matcher as tmatcher
+
+    def refuse(*a, **k):
+        raise PairUnsupported("plan tables refused (test)")
+
+    monkeypatch.setattr(tmatcher, "PlanShardScanner", refuse)
+    monkeypatch.setattr(jax_plan, "PlanShardScanner", refuse)
+    words, data = _corpus(16, size=2500)
+    tm, jm = _matchers(words, 2, "none", "pallas")
+    got = tm.match_chunked(data, chunk_bytes=1024)
+    assert all(isinstance(s, PairShardScanner) for s in tm._get_scanners())
+    assert all(type(s).__name__ == "PairShardScanner"
+               for s in jm._get_pallas_scanner()[1])
+    np.testing.assert_array_equal(got, jm.match(data))
+    np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    # under the segment cut the pair kernel is not tried: depth takes over
+    tm2, _ = _matchers(words, 2, "segment", "pallas")
+    assert all(isinstance(s, DepthShardScanner) for s in tm2._get_scanners())
+
+
+def test_unexpected_scanner_errors_propagate(monkeypatch):
+    # the JAX matcher warns and falls back on any exception; the port
+    # raises what is not a table build's refusal
+    from phfpfac_tpu_torch.parallel import matcher as tmatcher
+
+    def fault(*a, **k):
+        raise RuntimeError("a fault, not a refusal")
+
+    monkeypatch.setattr(tmatcher, "PlanShardScanner", fault)
+    words, data = _corpus(3, n_words=20)
+    tm, _ = _matchers(words, 1, "none", "pallas")
+    with pytest.raises(RuntimeError, match="fault"):
         tm.match(data)
-    # no shard has a bitmap kernel: the multi-shard kernel K5
-    pats = [Pattern(1, b"x" * 40), Pattern(2, b"y" * 50)]
-    tm = Matcher(compile_patterns(pats, cfg), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="K5"):
-        tm.match(b"x" * 45)
 
 
 def test_default_device_is_cuda(monkeypatch):
