@@ -35,6 +35,7 @@ All run with streamnum 1 (4 shards) and width 4096; each corpus holds
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -445,61 +446,15 @@ def phf_parity(name, singles, multi, window, max_steps, device):
     return data
 
 
-def pair_path(d, window, device):
-    """Exact mode through the pair scanners: PairShardScanner per shard
-    -> fetch_hit_bits -> decode_hits -> merge, held to the matcher's
-    result on the same bytes (the plan kernel)."""
-    from phfpfac_tpu_torch.ops.bitmap import decode_hits, fetch_hit_bits
-    from phfpfac_tpu_torch.ops.common import padded_steps
-    from phfpfac_tpu_torch.parallel.merge import merge_flat_matches
-
-    compiled, n = d["compiled"], len(window)
-    ms = padded_steps(compiled.max_pat_len)
-    padded = padded_window(window, ms, device)
-    t0 = time.perf_counter()
-    scans = [sc.scan(padded, n, d["cfg"], ms) for sc in d["pair_scanners"]]
-    flats = []
-    for (_cnt, bits), sh in zip(scans, compiled.shards):
-        pos, hb = fetch_hit_bits(bits, n)
-        flats.append(decode_hits(hb, pos, window, n, sh, ms))
-    got = merge_flat_matches(compiled, flats, n)
-    return got, time.perf_counter() - t0
-
-
-def phf_path(d, multi, device):
-    """The banked-PHF path over the whole corpus under the CLI's segment
-    cut: one K5 launch per 16 MiB window (the matcher's chunk geometry)
-    -> decode_bitmap per shard -> merge."""
-    from phfpfac_tpu_torch.ops.bitmap import decode_bitmap
-    from phfpfac_tpu_torch.ops.common import padded_steps
-    from phfpfac_tpu_torch.parallel.merge import merge_flat_matches
-
-    compiled, corpus, cfg = d["compiled"], d["corpus"], d["cfg"]
-    size = len(corpus)
-    ms = padded_steps(compiled.max_pat_len)
-    overlap = max(compiled.max_pat_len - 1, HALO)
-    wlen = CHUNK + overlap
-    per_shard = [[] for _ in compiled.shards]
-    first = None
-    t0 = time.perf_counter()
-    for base in range(0, size, CHUNK):
-        body = min(CHUNK, size - base)
-        wend = min(base + body + overlap, size)
-        window = corpus[base:wend]
-        window += b"\x00" * (wlen - len(window))
-        padded = padded_window(window, ms, device)
-        _cnt, bits = multi.scan(padded, wend - base, cfg, ms)
-        if first is None:
-            first = (padded, wend - base, bits)
-        host = bits.cpu().numpy()
-        for s, sh in enumerate(compiled.shards):
-            m = decode_bitmap(host[s], window, wend - base, sh, ms)
-            m = m[m[:, 0] < body]
-            m[:, 0] += base
-            per_shard[s].append(m)
-    got = merge_flat_matches(
-        compiled, [np.concatenate(parts) for parts in per_shard], size)
-    return got, time.perf_counter() - t0, first
+@contextlib.contextmanager
+def swapped(owner, name, value):
+    """``owner.name`` set to ``value`` inside the block, then restored."""
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
 
 
 def time_new_kernels(pair_recs, singles, multi, data, n, max_steps):
@@ -586,6 +541,7 @@ def main() -> int:
     from phfpfac_tpu_torch.ops import scan as K4
     from phfpfac_tpu_torch.ops.common import padded_steps, walk_limits
     from phfpfac_tpu_torch.oracle.ac import match_oracle
+    from phfpfac_tpu_torch.parallel import matcher as matcher_mod
     from phfpfac_tpu_torch.parallel.matcher import Matcher
     from phfpfac_tpu_torch.parallel.merge import render_result_file
     from phfpfac_tpu_torch.utils.config import PfacConfig
@@ -637,36 +593,38 @@ def main() -> int:
                               max_pat_len=sh.max_pat_len, kernel=k[0])
                          for sh, k in zip(compiled.shards, kinds)])
 
-        # lower50k: 36 symbols, scanned in exact mode over 16 MiB.  The
-        # pair tables take a shard only while they fit the
-        # entry's displacement field: more shards if it refuses
+        # lower50k: 36 symbols, scanned in exact mode over 16 MiB, 4
+        # shards (the pair tables take a shard only while they fit the
+        # entry's displacement field; a refusal fails the run)
         rng2 = np.random.default_rng(args.seed + 1)
         pats = make_stem_patterns(rng2, LOWER)
         lsize = min(CHUNK, size)
         corpus, planted = make_corpus(rng2, pats, lsize, LOWER,
                                       plants=PLANTS * lsize // size)
         files = write_inputs(tmp, "lower50k", pats, corpus, False)
-        for num_shards in (4, 16, 64):
-            cfg = PfacConfig(width=4096, num_shards=num_shards,
-                             truncation="none")
-            t0 = time.perf_counter()
-            compiled = compile_dictionary(files[0], cfg)
-            t1 = time.perf_counter()
-            try:
-                pair_scanners = [K3.PairShardScanner(sh, device=device)
-                                 for sh in compiled.shards]
-            except PairUnsupported as e:
-                emit("dictionary", name="lower50k", num_shards=num_shards,
-                     pair_tables_refused=str(e))
-                continue
-            break
-        else:
-            check(False, "build_pair_tables takes lower50k at no shard count")
+        cfg = PfacConfig(width=4096, num_shards=4, truncation="none")
+        t0 = time.perf_counter()
+        compiled = compile_dictionary(files[0], cfg)
+        t1 = time.perf_counter()
+        # with the plan kernel first in line the matcher reaches the
+        # pair kernel only where the plan tables refuse: they refuse here
+
+        def plan_refuses(*a, **k):
+            raise PairUnsupported("the plan kernel stands aside")
+
+        with swapped(matcher_mod, "PlanShardScanner", plan_refuses):
+            pair_matcher = Matcher(compiled, cfg, device=device,
+                                   train=corpus[:MIB])
+            pair_scanners = pair_matcher._get_scanners()
+        check(all(isinstance(sc, K3.PairShardScanner)
+                  for sc in pair_scanners),
+              "build_pair_tables refused a shard of lower50k")
         t2 = time.perf_counter()
         lower = dict(pats=pats, corpus=corpus, planted=planted, files=files,
-                     cfg=cfg, compiled=compiled, pair_scanners=pair_scanners)
+                     cfg=cfg, compiled=compiled, pair_scanners=pair_scanners,
+                     pair_matcher=pair_matcher)
         emit("dictionary", name="lower50k", patterns=len(pats),
-             corpus_bytes=lsize, num_shards=num_shards,
+             corpus_bytes=lsize, num_shards=cfg.num_shards,
              compile_seconds=t1 - t0, kernel_tables_seconds=t2 - t1,
              shards=[dict(states=sh.state_num, finals=sh.final_state_num,
                           max_pat_len=sh.max_pat_len,
@@ -700,8 +658,15 @@ def main() -> int:
         clam_n = min(CHUNK, size)  # bytes of clamav5k's first window
         phf_singles = [K4.PallasShardScanner(sh, device=device)
                        for sh in clam["compiled"].shards]
-        phf_multi = K4.MultiShardScanner(clam["compiled"].shards,
-                                         device=device)
+        # the matcher hands a dictionary to the multi kernel only when no
+        # shard has a bitmap scanner: none is offered here
+        with swapped(Matcher, "_shard_scanner_one",
+                     lambda self, shard, pt=None: None):
+            phf_matcher = Matcher(clam["compiled"], clam["cfg"],
+                                  device=device)
+            kind, phf_multi = phf_matcher._get_pallas_scanner()
+        check(kind == "multi" and isinstance(phf_multi, K4.MultiShardScanner),
+              f"clamav5k: the matcher's all-None route gave {kind!r}")
         clam["phf_data"] = phf_parity(
             "clamav5k", phf_singles, phf_multi, clam["corpus"][:CHUNK],
             clam_ms, device)
@@ -804,7 +769,9 @@ def main() -> int:
         # ---- 4b. the pair kernel's path: exact mode ----
         window = lower["corpus"]
         reset_launches()
-        got, secs = pair_path(lower, window, device)
+        t0 = time.perf_counter()
+        got = lower["pair_matcher"].match_chunked(window)
+        secs = time.perf_counter() - t0
         launches["pair_path"] = read_launches()
         check(K3.launches > 0, "the pair kernel never ran on its path")
         lm = Matcher(lower["compiled"], lower["cfg"], device=device,
@@ -827,17 +794,26 @@ def main() -> int:
 
         # ---- 4c. the banked-PHF kernels' path: the CLI's segment cut ----
         reset_launches()
-        got, secs, (padded, n0, bits0) = phf_path(clam, phf_multi, device)
+        t0 = time.perf_counter()
+        got = phf_matcher.match_chunked(clam["corpus"],
+                                        input_size=len(clam["corpus"]))
+        secs = time.perf_counter() - t0
+        launches["phf_path"] = read_launches()  # the matcher's: K5 only
+        # K4's path is its scanner class: the first window per shard,
+        # held to the rows K5 gives for the same window
+        _cnt, bits0 = phf_multi.scan(clam["phf_data"], clam_n, clam["cfg"],
+                                     clam_ms)
         for si, sc in enumerate(phf_singles):
-            _cnt, b = sc.scan(padded, n0, clam["cfg"], clam_ms)
+            _cnt, b = sc.scan(clam["phf_data"], clam_n, clam["cfg"], clam_ms)
             check(torch.equal(b, bits0[si]),
                   f"phf path shard {si}: K4's bitmap != K5's row")
-        launches["phf_path"] = read_launches()
-        check(K4.launches > 0 and K4.launches_multi > 0,
-              "a banked-PHF kernel never ran on its path")
+        launches["phf_path"]["phf_scan"] = K4.launches
+        check(launches["phf_path"]["phf_scan_multi"] > 0,
+              "the matcher's all-None route never ran the multi kernel")
+        check(K4.launches > 0, "the one-shard PHF kernel never ran")
         check(np.array_equal(got, clam["got"]),
               "phf path != the plan kernel's CLI output")
-        del padded, bits0
+        del bits0
         emit("phf_path", dictionary="clamav5k",
              corpus_bytes=len(clam["corpus"]), seconds=secs,
              matches=len(got), identical_to_cli_output=True,

@@ -47,14 +47,15 @@ def best_count_scanner(shard: ShardTables, max_steps: int,
     (any leveled automaton, max_pat_len <= 32) > banked-PHF kernel >
     torch-op scan.  ``train`` is an optional profile corpus for the plan
     kernel's profile-trained layout (exact for any input).  A table build
-    refuses a shard with ValueError (PairUnsupported / DepthUnsupported
-    are ValueErrors); any other error is a fault and propagates.
+    refuses a shard with DepthUnsupported (PairUnsupported is one) or
+    PhfUnsupported; any other error is a fault and propagates.
     """
     device = resolve_device(device)
+    from phfpfac_tpu_torch.compile.depth import DepthUnsupported
     from phfpfac_tpu_torch.ops.depth import depth_count_scanner
     from phfpfac_tpu_torch.ops.pair import pair_count_scanner
     from phfpfac_tpu_torch.ops.plan import plan_count_scanner
-    from phfpfac_tpu_torch.ops.scan import pallas_count_scanner
+    from phfpfac_tpu_torch.ops.scan import PhfUnsupported, pallas_count_scanner
 
     makers = (
         lambda: plan_count_scanner(shard, max_steps, device=device,
@@ -66,6 +67,6 @@ def best_count_scanner(shard: ShardTables, max_steps: int,
     for make in makers:
         try:
             return make()
-        except ValueError:
+        except (DepthUnsupported, PhfUnsupported):
             continue  # the table build refused this shard
     return xla_count_scanner(shard, max_steps, device=device)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from phfpfac_tpu_torch.compile.tables import ShardTables
-from phfpfac_tpu_torch.ops.common import padded_steps
+from phfpfac_tpu_torch.ops.common import padded_steps, resolve_device
 from phfpfac_tpu_torch.ops.staging import to_device_bytes
 
 
@@ -39,10 +39,11 @@ def scan_shard(
     *,
     slots: int,
     emit_counts: bool = False,
-    device="cpu",
+    device=None,
 ):
     """Scan with one shard's tables; returns (match_rows, counts), or
-    counts alone with ``emit_counts``, as tensors on ``device``.
+    counts alone with ``emit_counts``, as tensors on ``device`` (CUDA
+    unless named).
 
     ``match_rows[p, j]`` is the j-th shard-local final state hit by the
     walk from position p (-1 padded), in increasing match length —
@@ -52,7 +53,7 @@ def scan_shard(
     # the step count is bucketed as in the JAX engine; extra steps are
     # masked no-ops
     max_steps = padded_steps(shard.max_pat_len)
-    data = to_device_bytes(data_padded, device)
+    data = to_device_bytes(data_padded, resolve_device(device))
     dev = data.device
 
     def table(a):

@@ -57,6 +57,11 @@ launches = 0  # phf_scan CUDA launches (the CPU plain path never counts)
 launches_multi = 0  # phf_scan_multi CUDA launches
 
 
+class PhfUnsupported(ValueError):
+    """The banked-PHF kernels refuse this shard or step count; callers
+    route it to the next engine."""
+
+
 def _to_banks(arr: np.ndarray, fill: int) -> np.ndarray:
     nb = max(1, -(-len(arr) // LANE))
     out = np.full((nb, LANE), fill, dtype=np.int32)
@@ -76,7 +81,7 @@ class PallasTables:
     def __init__(self, shard: ShardTables, tt: TurboTables | None = None):
         tt = tt or build_turbo_tables(shard)
         if not tt.is_packed:
-            raise ValueError("pallas kernel requires packed tables")
+            raise PhfUnsupported("pallas kernel requires packed tables")
         self.s0 = _to_banks(tt.s0, tt.dead)
         # unbiased r with sentinel rows for the DEAD state; sentinel and
         # empty-row displacements produce out-of-range probe indices,
@@ -399,7 +404,7 @@ class PallasShardScanner:
 
     def scan(self, data_padded, input_size, cfg, max_steps):
         if max_steps > MAX_BITMAP_STEPS:
-            raise ValueError(
+            raise PhfUnsupported(
                 f"pallas bitmap path supports max_pat_len <= "
                 f"{MAX_BITMAP_STEPS}, got steps {max_steps}"
             )
@@ -428,7 +433,7 @@ class MultiShardScanner:
         # call is bound by the bitmap depth too (totals at more steps:
         # multi_count_scanner)
         if max_steps > MAX_BITMAP_STEPS:
-            raise ValueError(
+            raise PhfUnsupported(
                 f"pallas bitmap path supports max_pat_len <= "
                 f"{MAX_BITMAP_STEPS}, got steps {max_steps}"
             )
@@ -464,7 +469,7 @@ def pallas_count_scanner(shard: ShardTables, max_steps: int, *, device):
     """Count-mode scan fn(data, input_size, shift) -> total (exact mode)."""
     if max_steps > MAX_COUNT_STEPS:
         # fail at construction so engine_select can fall back
-        raise ValueError(f"pallas scan supports max_steps <= {LANE}")
+        raise PhfUnsupported(f"pallas scan supports max_steps <= {LANE}")
     return PhfCountScan(PallasShardScanner(shard, device=device), phf_scan,
                         max_steps)
 

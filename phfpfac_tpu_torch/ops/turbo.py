@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from phfpfac_tpu_torch.compile.tables import ShardTables
+from phfpfac_tpu_torch.ops.common import resolve_device
 from phfpfac_tpu_torch.ops.staging import to_device_bytes
 from phfpfac_tpu_torch.utils.config import PfacConfig
 
@@ -265,15 +266,15 @@ def scan_shard_turbo(
     cap_frac: int = 8,
     emit_counts: bool = False,
     turbo_tables: TurboTables | None = None,
-    device="cpu",
+    device=None,
 ):
-    """Run the turbo scan on ``device``; returns
+    """Run the turbo scan on ``device`` (CUDA unless named); returns
     ``(full_rows, cnt, tail_rows, tail_pos, tail_cnt, overflow)`` as
     tensors there — see ``expand_turbo_matches`` for the assembly.  On
     ``overflow`` the caller must fall back to the dense engine.
     """
     tt = turbo_tables or build_turbo_tables(shard)
-    data = to_device_bytes(data_padded, device)
+    data = to_device_bytes(data_padded, resolve_device(device))
     n_pos = data.shape[0] - max_steps
     cap = max(-(-n_pos // cap_frac), 128)
     seg_bytes = cfg.segment_bytes if cfg.truncation == "segment" else 0

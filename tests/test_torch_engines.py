@@ -99,7 +99,7 @@ def test_unpacked_turbo_tables_equal_and_scan():
     want = jax_turbo(jsh, padded, len(data), jcfg, max_steps=ms,
                      turbo_tables=jt)
     got = turbo.scan_shard_turbo(tsh, padded, len(data), tcfg, max_steps=ms,
-                                 turbo_tables=tt)
+                                 turbo_tables=tt, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
@@ -116,7 +116,7 @@ def _turbo_both(words, data, trunc, carry, **kw):
     want = jax_turbo(jsh, padded, len(data), jcfg, max_steps=ms,
                      turbo_tables=jt, **kw)
     got = turbo.scan_shard_turbo(tsh, padded, len(data), tcfg, max_steps=ms,
-                                 turbo_tables=tt, **kw)
+                                 turbo_tables=tt, device="cpu", **kw)
     return got, want, ms
 
 
@@ -167,7 +167,7 @@ def test_scan_core_pos0_offsets_the_global_limits():
     tt = turbo.build_turbo_tables(tsh)
     whole = turbo.scan_shard_turbo(tsh, pad_input(data, 1024, ms), len(data),
                                    tcfg, max_steps=ms, full_steps=ms,
-                                   turbo_tables=tt)
+                                   turbo_tables=tt, device="cpu")
     base = 1024
     block = torch.from_numpy(pad_input(data[base:], 1024, ms))
     part = turbo.scan_core(
@@ -192,7 +192,8 @@ def test_reference_scan_shard_equals_jax(trunc, emit_counts):
         want = scan_shard_jnp(jsh, padded, limits, len(data), slots=slots,
                               emit_counts=emit_counts)
         got = reference.scan_shard(tsh, padded, limits, len(data),
-                                   slots=slots, emit_counts=emit_counts)
+                                   slots=slots, emit_counts=emit_counts,
+                                   device="cpu")
         if emit_counts:
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
         else:
@@ -272,9 +273,31 @@ def test_best_count_scanner_order(monkeypatch):
         seen.append(int(s(padded, len(data), 1)))
     assert seen == [want] * 4
 
-    def fault(*a, **k):
-        raise RuntimeError("a fault, not a refusal")
+    # only a table build's own refusal moves on: any other error, a plain
+    # ValueError included, is a fault
+    for exc in (RuntimeError, ValueError):
+        def fault(*a, exc=exc, **k):
+            raise exc("a fault, not a refusal")
 
-    monkeypatch.setattr(plan, "plan_count_scanner", fault)
-    with pytest.raises(RuntimeError, match="fault"):
-        engine_select.best_count_scanner(tsh, ms, device="cpu")
+        monkeypatch.setattr(plan, "plan_count_scanner", fault)
+        with pytest.raises(exc, match="fault"):
+            engine_select.best_count_scanner(tsh, ms, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ["turbo", "reference"])
+def test_engine_default_device_is_cuda(engine, monkeypatch):
+    # the engines are entry points too: no device named means the card,
+    # and without one they raise rather than walk on the host
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    words, data = _words()
+    _, tsh = _pair(words)
+    _, tcfg = _cfgs("none")
+    ms = padded_steps(tsh.max_pat_len)
+    padded = pad_input(data, 1024, ms)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if engine == "turbo":
+            turbo.scan_shard_turbo(tsh, padded, len(data), tcfg, max_steps=ms)
+        else:
+            limits = walk_limits(len(padded) - ms, len(data),
+                                 tsh.max_pat_len, tcfg)
+            reference.scan_shard(tsh, padded, limits, len(data), slots=4)

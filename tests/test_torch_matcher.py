@@ -290,6 +290,32 @@ def test_unexpected_scanner_errors_propagate(monkeypatch):
         tm.match(data)
 
 
+@pytest.mark.parametrize("refusal", [False, True])
+def test_multi_scanner_refusal_vs_fault(refusal, monkeypatch):
+    # only the banked-PHF tables' own refusal sends the dictionary to
+    # the turbo engine; a plain ValueError from the build is a fault
+    from phfpfac_tpu_torch.ops.scan import PhfUnsupported
+    from phfpfac_tpu_torch.parallel import matcher as tmatcher
+
+    exc = PhfUnsupported if refusal else ValueError
+
+    def build(*a, **k):
+        raise exc("multi build (test)")
+
+    monkeypatch.setattr(Matcher, "_shard_scanner_one",
+                        lambda self, shard, pt=None: None)
+    monkeypatch.setattr(tmatcher, "MultiShardScanner", build)
+    words, data = _corpus(15, size=2500)
+    tm, _ = _matchers(words, 2, "none", "pallas")
+    if refusal:
+        got = tm.match(data)
+        assert tm._get_pallas_scanner()[0] == "turbo"
+        np.testing.assert_array_equal(got, _oracle(words, data, tm))
+    else:
+        with pytest.raises(ValueError, match="multi build"):
+            tm.match(data)
+
+
 def test_default_device_is_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = PfacConfig(width=256, num_shards=1)

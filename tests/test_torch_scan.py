@@ -174,9 +174,9 @@ def test_unpacked_tables_are_refused():
                            PfacConfig(width=2, num_shards=1)).shards[0]
     with pytest.raises(ValueError, match="packed"):
         jscan.PallasTables(jsh)
-    with pytest.raises(ValueError, match="packed"):
+    with pytest.raises(tscan.PhfUnsupported, match="packed"):
         tscan.PallasTables(tsh)
-    with pytest.raises(ValueError, match="packed"):
+    with pytest.raises(tscan.PhfUnsupported, match="packed"):
         tscan.MultiShardScanner([tsh], device="cpu")
 
 
@@ -187,9 +187,9 @@ def test_steps_past_the_bitmap_are_refused():
     padded = pad_input(c["data"], 1024, 40)
     for sc in (tscan.PallasShardScanner(c["tc"].shards[0], device="cpu"),
                tscan.MultiShardScanner(c["tc"].shards, device="cpu")):
-        with pytest.raises(ValueError, match="max_pat_len <= 32"):
+        with pytest.raises(tscan.PhfUnsupported, match="max_pat_len <= 32"):
             sc.scan(padded, n, cfg, 40)
-    with pytest.raises(ValueError, match="max_steps <= 128"):
+    with pytest.raises(tscan.PhfUnsupported, match="max_steps <= 128"):
         tscan.pallas_count_scanner(c["tc"].shards[0], 136, device="cpu")
     # count mode walks past 32 steps (no bitmap to overflow)
     got = tscan.pallas_count_scanner(c["tc"].shards[0], 40, device="cpu")(
