@@ -9,8 +9,11 @@ against its plain torch version on the card, drives the gphf CLI main
 path (``phfpfac_tpu_torch.cli.main``) over two dictionaries at the size
 users run, then the paths of the other kernels and engines (the depth
 path, the exact-mode pair path, the banked-PHF path, ``--engine
-turbo|jnp``, the count scanners), checks every output, times the
-kernels and prints one JSON line per phase.  The last line is
+turbo|jnp``, the count scanners), then the two-phase compacted plan scan
+through ``Matcher.match_chunked`` on both dictionaries, the
+device-resident chunk loop, ``StreamMatcher`` / ``match_many``, the
+CLI's ``--save-tables`` / ``--load-tables`` and ``--charset``; checks
+every output, times the kernels and prints one JSON line per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and exits
 non-zero.  Without a GPU, or without the package beside it, it exits
 non-zero and prints no result.
@@ -28,8 +31,12 @@ directory:
   symbols, which build_pair_tables takes; ascii50k's 95 it
   refuses), over text of the same alphabet, scanned in exact mode.
 
+* class5k: 5,000 of lower50k's patterns with one byte widened to a
+  ``[...]`` class of 2-10 members, plus 50 second spellings of the first
+  50 (multi-output finals), over 16 MiB of ``a-z0-9`` (``--charset``).
+
 All run with streamnum 1 (4 shards) and width 4096; each corpus holds
-100,000 planted dictionary patterns (lower50k's 16 MiB: 25,000).
+100,000 planted dictionary patterns (the 16 MiB ones: 25,000).
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ import torch
 DEVICE = "cuda"
 MIB = 1 << 20
 CHUNK = 16 * MIB  # the CLI's match_chunked window
+FEED = MIB  # bytes per StreamMatcher feed
 SEG, HALO = 4096, 512  # the CLI's default segment cut
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 PLANTS = 100_000
@@ -67,7 +75,7 @@ def check(ok, what: str) -> None:
 
 # kernel vs plain, this run
 MAX_ERR = {"plan_scan": 0, "depth_scan": 0, "pair_scan": 0, "phf_scan": 0,
-           "phf_scan_multi": 0}
+           "phf_scan_multi": 0, "plan_scan_compact_a": 0, "planb_scan": 0}
 
 
 def agree(kernel: str, got, want, what: str) -> None:
@@ -511,6 +519,569 @@ def time_new_kernels(pair_recs, singles, multi, data, n, max_steps):
     return k3, k4, k5
 
 
+# ---- the compacted plan scan -------------------------------------------------
+
+@contextlib.contextmanager
+def opted_in():
+    """"auto" compaction engaged inside the block (it is opt-in)."""
+    from phfpfac_tpu_torch.ops.plan import AUTO_OPT_IN
+
+    old = os.environ.get(AUTO_OPT_IN)
+    os.environ[AUTO_OPT_IN] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[AUTO_OPT_IN]
+        else:
+            os.environ[AUTO_OPT_IN] = old
+
+
+def choose_compact(pt, n_pos):
+    """(how, cut, cap, why): the cut "auto" picks with the opt-in, else
+    the first explicit int cut ``resolve_compact`` accepts, and why
+    "auto" declined."""
+    from phfpfac_tpu_torch.ops import plan as K1
+
+    with opted_in():
+        auto = K1.resolve_compact(pt, n_pos, "auto")
+    if auto is not None:
+        return ("auto", *auto, None)
+    if not pt.trained or not pt.live_frac:
+        why = "untrained tables"
+    elif not any(f <= K1.COMPACT_MAX_FRAC for f in pt.live_frac[1:]):
+        why = (f"no trained step at or under {K1.COMPACT_MAX_FRAC:.0%} "
+               f"live (least {min(pt.live_frac[1:], default=1.0):.4f})")
+    else:
+        why = "cap * 2 >= n_pos"
+    for cut in range(1, len(pt.steps)):
+        cc = K1.resolve_compact(pt, n_pos, cut)
+        if cc is not None:
+            return ("explicit", *cc, why)
+    return (None, 0, 0, why + "; no int cut resolves either")
+
+
+def sorted_survivors(surv, cap):
+    pos, disp, count = surv
+    n = min(int(count), cap)
+    order = torch.argsort(pos[:n])
+    return [pos[:n][order], disp[:n][order], count.reshape(1)]
+
+
+def compact_parity(name, d, device):
+    """K1' and K6 against their plain versions on a 16 MiB window, per
+    shard: at the cut "auto" picks with the opt-in (where it picks one)
+    and at one explicit cut, under the segment cut and in exact mode,
+    bitmap and count mode; equal also to uncompacted K1.  Then one
+    forced overflow per dictionary: the scanner still gives K1's result."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.common import padded_steps
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    out = []
+    for rec in d["recs"]:
+        sc, staged = rec["scanner"], rec["staged"]
+        check(isinstance(sc, K1.PlanShardScanner),
+              f"{name} shard {rec['shard']}: not a plan scanner")
+        t, n_pos = sc.tables, staged.numel() - TILE
+        n_steps = len(t.spec)
+        check(n_steps >= 2, f"{name} shard {rec['shard']}: nothing to cut")
+        how, cut, cap, _why = choose_compact(sc.pt, n_pos)
+        cuts = [(how, cut, cap)] if how == "auto" else []
+        e_cut = 1 if not cuts or cut != 1 else 2
+        e = K1.resolve_compact(sc.pt, n_pos, e_cut) or (
+            e_cut, n_pos // 2 // K1.COMPACT_BLOCK * K1.COMPACT_BLOCK)
+        cuts.append(("explicit", *e))
+        for how, cut, cap in cuts:
+            for seg in (SEG, 0):
+                what = (f"{name} shard {rec['shard']}: compact {how} "
+                        f"cut={cut} cap={cap} seg={seg}")
+                kw = dict(cut=cut, cap=cap, seg_bytes=seg, halo_bytes=HALO)
+                whole = K1.plan_scan(staged, t, seg_bytes=seg,
+                                     halo_bytes=HALO)
+                want, want_surv = K1.plan_scan_compact_a_plain(staged, t,
+                                                               **kw)
+                got, surv = K1.plan_scan_compact_a(staged, t, **kw)
+                count = int(surv[2])
+                check(count <= cap, f"{what}: {count} survivors overflow")
+                agree("plan_scan_compact_a",
+                      [*got, *sorted_survivors(surv, cap)],
+                      [*want, *sorted_survivors(want_surv, cap)],
+                      f"{what}: phase A")
+                # K6 on the plain version's survivors, padded to cap
+                pad = torch.zeros(cap - count, dtype=torch.int32,
+                                  device=device)
+                fed = (torch.cat([want_surv[0], pad]),
+                       torch.cat([want_surv[1], pad]), want_surv[2])
+                K1.planb_scan(staged, t, got, fed, **kw)
+                K1.planb_scan_plain(staged, t, want, want_surv, **kw)
+                agree("planb_scan", got, want, f"{what}: phase B")
+                agree("planb_scan", got, whole, f"{what}: != K1")
+                # the pair through its wrapper, with K1's own slot order
+                pair = K1.plan_scan_compact(staged, t, **kw)
+                agree("planb_scan", pair[:2], whole, f"{what}: pair != K1")
+                check(int(pair[2]) == count, f"{what}: pair's count")
+                del want, got, pair, fed, surv, want_surv
+                total, c2 = K1.plan_scan_compact(staged, t, emit="count",
+                                                 shift=1, **kw)
+                ptotal, pc2 = K1.plan_scan_compact_plain(
+                    staged, t, emit="count", shift=1, **kw)
+                agree("planb_scan", [total, c2.reshape(1)],
+                      [ptotal, pc2.reshape(1)], f"{what}: count mode")
+                agree("planb_scan", [total],
+                      [K1.plan_scan(staged, t, emit="count", shift=1,
+                                    seg_bytes=seg, halo_bytes=HALO)],
+                      f"{what}: count mode != K1")
+                out.append(dict(shard=rec["shard"], how=how, cut=cut,
+                                cap=cap, seg=seg, survivors=count))
+                del whole
+    # forced overflow: a cap of one block at step 1
+    rec = d["recs"][0]
+    sc = rec["scanner"]
+    ms = padded_steps(sc.shard.max_pat_len)
+    window = padded_window(d["corpus"][:CHUNK], ms, device)
+    small = K1.PlanShardScanner(sc.shard, device=device, pt=sc.pt,
+                                compact=(1, K1.COMPACT_BLOCK))
+    before = K1.overflow_rescans
+    _cnt, bits, verify = small.scan_async(window, rec["n"], d["cfg"], ms)
+    truncated = not torch.equal(bits, rec["plan_bits"])
+    _cnt, bits = verify()
+    check(K1.overflow_rescans == before + 1,
+          f"{name}: the forced overflow did not rescan")
+    check(torch.equal(bits, rec["plan_bits"]),
+          f"{name}: the overflow rescan != K1")
+    return out, dict(cap=K1.COMPACT_BLOCK, rescans=1,
+                     truncated_before_rescan=truncated)
+
+
+def compacting_scanner(chosen: list):
+    """A PlanShardScanner factory that compacts at ``choose_compact``'s
+    cut for the matcher's chunk size, and records what it chose."""
+    from phfpfac_tpu_torch.ops import plan as K1
+
+    def make(shard, **kw):
+        sc = K1.PlanShardScanner(shard, **kw)
+        how, cut, cap, why = choose_compact(sc.pt, chosen[0])
+        check(how is not None, f"no compaction cut for a shard: {why}")
+        if how == "explicit":
+            sc.compact = cut  # an int cut: capped as resolve_compact caps
+        chosen.append(dict(how=how, cut=cut, cap=cap, auto_declined=why))
+        return sc
+
+    return make
+
+
+def compact_path(name, d, device, matcher_mod):
+    """This slice's path: ``Matcher.match_chunked`` over the whole corpus
+    with the compacted scan engaged: "auto" under the opt-in where it
+    resolves, else scanners built with an explicit int cut."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.common import padded_steps
+    from phfpfac_tpu_torch.parallel.matcher import Matcher
+
+    corpus, n = d["corpus"], len(d["corpus"])
+    _chunk, _overlap, wpad = d["matcher"]._chunk_geometry(CHUNK)
+    chosen = [wpad - padded_steps(d["compiled"].max_pat_len)]
+
+    def uncompacted():
+        return host_seconds(lambda: d["matcher"].match_chunked(
+            corpus, input_size=n, chunk_bytes=CHUNK))
+
+    plain_secs = [uncompacted()]
+    with swapped(matcher_mod, "PlanShardScanner",
+                 compacting_scanner(chosen)), opted_in():
+        m = Matcher(d["compiled"], d["cfg"], device=device,
+                    train=corpus[:MIB])
+        K1.launches = K1.launches_compact_a = K1.launches_compact_b = 0
+        scans0, rescans0 = K1.compact_scans, K1.overflow_rescans
+        t0 = time.perf_counter()
+        got = m.match_chunked(corpus, input_size=n, chunk_bytes=CHUNK)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = dict(plan_scan_compact_a=K1.launches_compact_a,
+                      planb_scan=K1.launches_compact_b,
+                      plan_scan=K1.launches)
+        scans = K1.compact_scans - scans0
+        rescans = K1.overflow_rescans - rescans0
+        # again for the time (the first run built the scanners), in
+        # turns with the uncompacted matcher: plain, pair, pair, plain
+        warm = [host_seconds(lambda: m.match_chunked(
+            corpus, input_size=n, chunk_bytes=CHUNK)) for _ in range(2)]
+    plain_secs.append(uncompacted())
+    chunks = -(-n // CHUNK)
+    n_plan = len(chosen) - 1
+    check(np.array_equal(got, d["got"]),
+          f"{name}: compacted path != the CLI's main-path output")
+    check(counts["plan_scan_compact_a"] == counts["planb_scan"]
+          == n_plan * chunks == scans,
+          f"{name}: compacted launches {counts}, {n_plan} plan shards x "
+          f"{chunks} chunks")
+    check(counts["plan_scan"] == rescans,
+          f"{name}: {counts['plan_scan']} K1 launches, {rescans} rescans")
+    check(rescans < scans, f"{name}: every compacted scan overflowed")
+    return dict(dictionary=name, corpus_bytes=n, seconds_first=secs,
+                seconds=warm, seconds_uncompacted=plain_secs,
+                chunks=chunks, shards=chosen[1:], launches=counts,
+                compacted_scans=scans, overflow_rescans=rescans,
+                identical_to_cli_output=True, matches=len(got))
+
+
+def deep_work(staged, t, surv, cut, cap, seg):
+    """What phase B's data needs: window reads (one per survivor per
+    step it is still live at) and survivors that end with deep bits."""
+    from phfpfac_tpu_torch.ops import plan as K1
+
+    pos, disp, count = surv
+    n = min(int(count), cap)
+    pos, disp = pos[:n].to(torch.int64), disp[:n].to(torch.int64)
+    flat = staged.reshape(-1)
+    room = ((pos & ~(seg - 1)) + (seg + HALO) - pos) if seg else None
+    out = torch.zeros_like(pos)
+    reads = 0
+    for sp in t.spec[cut:]:
+        live = disp != t.p0_miss
+        if room is not None:
+            live = live & (room > sp.depth0 - 1)
+        reads += int(live.sum())
+        disp, out = K1.plan_steps_plain([sp], t, lambda o: flat[pos + o],
+                                        room, disp, out)
+    return reads, int((out != 0).sum())
+
+
+def compact_times(name, d):
+    """CUDA-event ms per 16 MiB chunk, summed over the plan shards:
+    K1' alone, K6 alone (the merge is inside it; no separate compaction
+    pass exists), the pair, and uncompacted K1 in the same run; bitmap
+    mode under the segment cut and count mode; survivors, cap and live
+    fraction at the cut; each kernel's bytes bound."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    keys = ("a_ms", "b_ms", "pair_ms", "k1_ms", "a_plain_ms", "b_plain_ms",
+            "count_a_ms", "count_b_ms", "count_pair_ms", "count_k1_ms",
+            "a_bound_ms", "b_bound_ms", "count_a_bound_ms",
+            "count_b_bound_ms", "k1_bound_ms")
+    r = dict.fromkeys(keys, 0.0)
+    r.update(n_pos=0, survivors=0, cap=0, window_reads=0, deep_hits=0,
+             shards=[])
+    for rec in d["recs"]:
+        sc, st = rec["scanner"], rec["staged"]
+        t, n_pos = sc.tables, st.numel() - TILE
+        how, cut, cap, _why = choose_compact(sc.pt, n_pos)
+        kw = dict(cut=cut, cap=cap, seg_bytes=SEG, halo_bytes=HALO)
+        ckw = dict(cut=cut, cap=cap, emit="count")
+        res, surv = K1.plan_scan_compact_a(st, t, **kw)
+        count = int(surv[2])
+        check(count <= cap, f"{name} shard {rec['shard']}: overflow "
+                            f"({count} > {cap}) in compact_times")
+        tot, csurv = K1.plan_scan_compact_a(st, t, **ckw)
+        r["a_ms"] += cuda_ms(lambda: K1.plan_scan_compact_a(st, t, **kw))
+        r["b_ms"] += cuda_ms(lambda: K1.planb_scan(st, t, res, surv, **kw))
+        r["pair_ms"] += cuda_ms(lambda: K1.plan_scan_compact(st, t, **kw))
+        r["k1_ms"] += cuda_ms(lambda: K1.plan_scan(
+            st, t, seg_bytes=SEG, halo_bytes=HALO))
+        r["a_plain_ms"] += cuda_ms(
+            lambda: K1.plan_scan_compact_a_plain(st, t, **kw), reps=2)
+        r["b_plain_ms"] += cuda_ms(
+            lambda: K1.planb_scan_plain(st, t, res, surv, **kw), reps=2)
+        r["count_a_ms"] += cuda_ms(
+            lambda: K1.plan_scan_compact_a(st, t, **ckw))
+        r["count_b_ms"] += cuda_ms(
+            lambda: K1.planb_scan(st, t, tot, csurv, **ckw))
+        r["count_pair_ms"] += cuda_ms(
+            lambda: K1.plan_scan_compact(st, t, **ckw))
+        r["count_k1_ms"] += cuda_ms(lambda: K1.plan_scan(st, t,
+                                                         emit="count"))
+        reads, hits = deep_work(st, t, surv, cut, cap, SEG)
+        creads, _ = deep_work(st, t, csurv, cut, cap, 0)
+        tb = table_bytes(t)
+        # K1': the stream read, cnt and bits written, (pos, disp) written
+        # per survivor, the tables read once
+        r["a_bound_ms"] += ((12 * n_pos + 8 * count + tb)
+                            / HBM_BYTES_PER_S * 1e3)
+        r["count_a_bound_ms"] += ((4 * n_pos + 8 * int(csurv[2]) + tb)
+                                  / HBM_BYTES_PER_S * 1e3)
+        # K6: (pos, disp) read per survivor, a 32 B sector per window
+        # read, and per survivor with deep bits a sector of bits and of
+        # cnt read and written
+        r["b_bound_ms"] += ((8 * count + 32 * reads + 4 * 32 * hits)
+                            / HBM_BYTES_PER_S * 1e3)
+        r["count_b_bound_ms"] += ((8 * int(csurv[2]) + 32 * creads)
+                                  / HBM_BYTES_PER_S * 1e3)
+        r["k1_bound_ms"] += bound_ms(n_pos, tb, True)
+        r["n_pos"] += n_pos
+        r["survivors"] += count
+        r["cap"] += cap
+        r["window_reads"] += reads
+        r["deep_hits"] += hits
+        r["shards"].append(dict(shard=rec["shard"], how=how, cut=cut,
+                                cap=cap, steps=len(t.spec),
+                                survivors=count,
+                                live_fraction=count / n_pos,
+                                count_mode_survivors=int(csurv[2])))
+        del res, surv, tot, csurv
+    r["live_fraction"] = r["survivors"] / r["n_pos"]
+    r["sum_ms"] = r["a_ms"] + r["b_ms"]
+    return r
+
+
+# ---- the rest of the single-device surface -----------------------------------
+
+def sorted_rows(a):
+    a = np.asarray(a, np.int64).reshape(-1, 2)
+    return a[np.lexsort((a[:, 1], a[:, 0]))]
+
+
+def device_data_phase(d):
+    """``match_chunked`` with the corpus uploaded once
+    (``stage_for_chunked``) against the loop that uploads each chunk."""
+    m, corpus, n = d["matcher"], d["corpus"], len(d["corpus"])
+    out = {}
+    staged = None
+
+    def upload():
+        nonlocal staged
+        staged = m.stage_for_chunked(corpus, chunk_bytes=CHUNK)
+
+    out["staging_upload_seconds"] = host_seconds(upload)
+    res = {}
+    for label, kw in (("uploaded_per_chunk", {}),
+                      ("device_resident", {"device_data": staged}),
+                      ("uploaded_per_chunk_2", {}),
+                      ("device_resident_2", {"device_data": staged})):
+        out[f"{label}_seconds"] = host_seconds(
+            lambda: res.__setitem__(label, m.match_chunked(
+                corpus, input_size=n, chunk_bytes=CHUNK, **kw)))
+    check(np.array_equal(res["device_resident"], res["uploaded_per_chunk"]),
+          "device-resident chunking != per-chunk upload")
+    check(np.array_equal(res["device_resident"], d["got"]),
+          "device-resident chunking != the CLI's output")
+    out.update(staged_bytes=int(staged.numel()), matches=len(d["got"]),
+               equal=True)
+    return out
+
+
+def stream_phase(d, cfg, window: bytes, feed_bytes: int, device):
+    """``StreamMatcher`` fed ``window`` in ``feed_bytes`` feeds, two
+    dispatched ahead of the one resolved, then ``finish()``: the
+    concatenated results against one ``Matcher.match``."""
+    from phfpfac_tpu_torch.parallel.matcher import Matcher
+    from phfpfac_tpu_torch.parallel.stream import StreamMatcher
+
+    sm = StreamMatcher(d["compiled"], cfg, device=device)
+    check(sm.matcher.engine == "pallas", "StreamMatcher's default engine")
+    sm.matcher._train = window[:MIB]
+    sm.matcher._get_pallas_scanner()  # build the scanners: not timed
+    torch.cuda.synchronize()
+    parts, pending = [], []
+    t0 = time.perf_counter()
+    for i in range(0, len(window), feed_bytes):
+        pending.append(sm.feed_async(window[i: i + feed_bytes]))
+        if len(pending) > 2:
+            parts.append(pending.pop(0)())
+    parts += [r() for r in pending]
+    parts.append(sm.finish())
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    feeds = -(-len(window) // feed_bytes)
+    got = np.concatenate(parts)
+    want = Matcher(d["compiled"], cfg, device=device,
+                   train=window[:MIB]).match(window)
+    check(np.array_equal(sorted_rows(got), sorted_rows(want)),
+          "streamed results != one Matcher.match")
+    return dict(bytes=len(window), feeds=feeds, feed_bytes=feed_bytes,
+                truncation=cfg.truncation, seconds=secs,
+                seconds_per_feed=secs / feeds,
+                gb_per_s=len(window) / secs / 1e9, matches=len(got),
+                flushed_by_finish=len(parts[-1]), equal_to_one_shot=True)
+
+
+def match_many_phase(d, rng, device):
+    """``match_many`` on 10,000 buffers of 1,500 B cut from the corpus
+    (fewer where the corpus is shorter); a sample of 200 against
+    scanning each alone."""
+    from phfpfac_tpu_torch.parallel.stream import match_many
+
+    m, corpus = d["matcher"], d["corpus"]
+    bufs = [corpus[i * 1500: (i + 1) * 1500]
+            for i in range(min(10_000, len(corpus) // 1500))]
+    outs = []
+    secs = host_seconds(lambda: outs.extend(match_many(m, bufs)))
+    check(len(outs) == len(bufs), "match_many: one result per buffer")
+    sample = rng.choice(len(bufs), min(200, len(bufs)), replace=False)
+    for i in sample:
+        check(np.array_equal(outs[int(i)], m.match(bufs[int(i)])),
+              f"match_many: buffer {int(i)} != scanning it alone")
+    return dict(buffers=len(bufs), buffer_bytes=1500, seconds=secs,
+                matches=sum(len(o) for o in outs), sampled=len(sample),
+                sample_matches=sum(len(outs[int(i)]) for i in sample),
+                equal=True)
+
+
+def run_cli_phases(args):
+    """The CLI: (whole seconds, create_pfac seconds, match seconds), the
+    last two from its own phase timer."""
+    from phfpfac_tpu_torch import cli as cli_mod
+
+    real, timers = cli_mod.PhaseTimer, []
+
+    def timer():
+        timers.append(real())
+        return timers[-1]
+
+    with swapped(cli_mod, "PhaseTimer", timer):
+        secs = run_cli(args)
+    phases = timers[-1].phases
+    return secs, phases["create_pfac"], phases["match"]
+
+
+def tables_phase(name, d, tmp):
+    """The CLI with ``--save-tables``, then with ``--load-tables``."""
+    from phfpfac_tpu_torch.compile.tables import CompiledDictionary
+
+    pat_file, in_file = d["files"]
+    npz = os.path.join(tmp, f"{name}.npz")
+    outs = [os.path.join(tmp, f"{name}.{k}.out") for k in ("save", "load")]
+    save = run_cli_phases([pat_file, 1, 4096, in_file, "-o", outs[0],
+                           "--quiet", *d["flags"], "--save-tables", npz])
+    saved = CompiledDictionary.load(npz)
+    carried = sum(p is not None for p in saved.plan_tables or [])
+    check(carried > 0, f"{name}: the saved file carries no plan tables")
+    load = run_cli_phases(["no-such-pattern-file", 1, 4096, in_file, "-o",
+                           outs[1], "--quiet", "--load-tables", npz])
+    for out in outs:
+        with open(out, "rb") as f, open(d["out"], "rb") as g:
+            check(f.read() == g.read(),
+                  f"{name}: {os.path.basename(out)} != the main path's")
+    keys = ("cli_seconds", "create_pfac_seconds", "match_seconds")
+    return dict(dictionary=name, file_bytes=os.path.getsize(npz),
+                shards=len(saved.shards), plan_tables_carried=carried,
+                save=dict(zip(keys, save)), load=dict(zip(keys, load)),
+                main_path_cli_seconds=d["cli_seconds"],
+                byte_identical=True)
+
+
+def make_class_specs(rng, count=5000, again=50):
+    """``count`` of lower50k's patterns with one byte widened to a class
+    of 2-10 members that holds it; each of the first ``again`` is
+    followed by a second spelling with a byte widened anew, so that both
+    ids end in one DFA final of one shard.  Returns (specs, the plain
+    patterns they were made of)."""
+    base = make_stem_patterns(rng, LOWER, count=count)
+
+    def widen(p):
+        i = int(rng.integers(0, len(p)))
+        others = rng.choice(LOWER[LOWER != p[i]], int(rng.integers(1, 10)),
+                            replace=False)
+        return p[:i] + b"[" + bytes([p[i]]) + bytes(others) + b"]" + p[i + 1:]
+
+    plain = [p for k, p in enumerate(base) for _ in range(1 + (k < again))]
+    return [widen(p) for p in plain], plain
+
+
+def class_oracle(class_patterns, data: bytes) -> np.ndarray:
+    """Host oracle for a class dictionary, no walk truncation (every
+    pattern is shorter than the halo): per position by (length, id)."""
+    buf = np.frombuffer(data, np.uint8)
+    at = {b: np.flatnonzero(buf == b) for b in np.unique(buf).tolist()}
+    none = np.empty(0, np.int64)
+    rows = []
+    for cp in class_patterns:
+        L = len(cp.classes)
+        cand = np.concatenate(
+            [at.get(b, none) for b in cp.classes[0]] or [none])
+        cand = cand[cand <= len(buf) - L]
+        for j in range(1, L):
+            if not cand.size:
+                break
+            lut = np.zeros(256, bool)
+            lut[list(cp.classes[j])] = True
+            cand = cand[lut[buf[cand + j]]]
+        rows += [(int(p), L, cp.pattern_id) for p in cand]
+    rows.sort()
+    return np.asarray([(p, i) for p, _L, i in rows],
+                      np.int64).reshape(-1, 2)
+
+
+def charset_phase(rng, tmp, device):
+    """The CLI with ``--charset`` on class5k over 16 MiB: output lines
+    against the plain version's bitmaps, and a 1 MiB prefix against the
+    host oracle."""
+    from phfpfac_tpu_torch.compile.tables import compile_class_patterns
+    from phfpfac_tpu_torch.frontend.charset import read_class_patterns
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.parallel.matcher import Matcher
+    from phfpfac_tpu_torch.parallel.merge import render_result_file
+    from phfpfac_tpu_torch.utils.config import PfacConfig
+
+    specs, plain_pats = make_class_specs(rng)
+    corpus, planted = make_corpus(rng, plain_pats, CHUNK, LOWER,
+                                  plants=PLANTS // 4)
+    pat_file, in_file = write_inputs(tmp, "class5k", specs, corpus, False)
+    cfg = PfacConfig(width=4096, num_shards=4, truncation="segment")
+    t0 = time.perf_counter()
+    cps = read_class_patterns(pat_file)
+    compiled = compile_class_patterns(cps, cfg)
+    compile_seconds = time.perf_counter() - t0
+    multi = sum(len(v) > 1 for sh in compiled.shards
+                for v in sh.output_lists.values())
+    check(multi > 0, "class5k: no multi-output final")
+    out = os.path.join(tmp, "class5k.out")
+    secs = run_cli([pat_file, 1, 4096, in_file, "-o", out, "--quiet",
+                    "--charset"])
+    got = read_output(out)
+    got_set = set(map(tuple, got.tolist()))
+    missing = [p for p in planted if p not in got_set]
+    check(not missing, f"class5k: planted matches missing {missing[:5]}")
+    # distinct (position, length) pairs of the output = set bits of the
+    # plain version's bitmaps (a multi-output final writes several lines)
+    plen = np.zeros(len(cps) + 1, np.int64)
+    for cp in cps:
+        plen[cp.pattern_id] = len(cp.classes)
+    distinct = len(np.unique(got[:, 0] * 64 + plen[got[:, 1]]))
+    m = Matcher(compiled, cfg, device=device, train=corpus[:MIB])
+    bits_set = 0
+    for sc in m._get_scanners():
+        check(isinstance(sc, K1.PlanShardScanner),
+              "class5k: a shard took another kernel than plan")
+        staged, n = scan_inputs(sc, corpus, device)
+        cnt, _bits = K1.plan_scan_plain(staged, sc.tables, seg_bytes=SEG,
+                                        halo_bytes=HALO)
+        bits_set += int(cnt[:n].sum())
+    # counted per shard: two shards' patterns may match one string
+    per_shard = 0
+    for sh in compiled.shards:
+        ids = np.unique(np.concatenate(
+            [np.asarray(v) for v in sh.output_lists.values()]))
+        sel = got[np.isin(got[:, 1], ids)]
+        per_shard += len(np.unique(sel[:, 0] * 64 + plen[sel[:, 1]]))
+    check(per_shard == bits_set,
+          f"class5k: {per_shard} (position, length) pairs per shard in "
+          f"the output, plain bitmaps hold {bits_set} bits")
+    small = corpus[:MIB]
+    s_in = os.path.join(tmp, "class5k.small")
+    with open(s_in, "wb") as f:
+        f.write(small + b"\n")
+    s_out = os.path.join(tmp, "class5k.small.out")
+    run_cli([pat_file, 1, 4096, s_in, "-o", s_out, "--quiet", "--charset"])
+    t0 = time.perf_counter()
+    want = class_oracle(cps, small)
+    oracle_seconds = time.perf_counter() - t0
+    with open(s_out) as f:
+        check(f.read() == render_result_file(want),
+              "class5k: 1 MiB output differs from the host oracle")
+    return dict(dictionary="class5k", class_patterns=len(cps),
+                compile_seconds=compile_seconds,
+                states=[sh.state_num for sh in compiled.shards],
+                multi_output_finals=multi, corpus_bytes=len(corpus),
+                cli_seconds=secs, output_lines=len(got),
+                distinct_position_length=distinct,
+                plain_bitmap_bits=bits_set, planted_found=len(planted),
+                oracle_bytes=len(small), oracle_matches=len(want),
+                oracle_seconds=oracle_seconds, identical_to_oracle=True)
+
+
+
 def host_seconds(fn) -> float:
     """Host-clock seconds of ``fn`` up to the end of its device work."""
     torch.cuda.synchronize()
@@ -679,12 +1250,15 @@ def main() -> int:
 
         def reset_launches():
             K1.launches = K2.launches = K3.launches = 0
+            K1.launches_compact_a = K1.launches_compact_b = 0
             K4.launches = K4.launches_multi = 0
 
         def read_launches():
             return dict(plan_scan=K1.launches, depth_scan=K2.launches,
                         pair_scan=K3.launches, phf_scan=K4.launches,
-                        phf_scan_multi=K4.launches_multi)
+                        phf_scan_multi=K4.launches_multi,
+                        plan_scan_compact_a=K1.launches_compact_a,
+                        planb_scan=K1.launches_compact_b)
 
         # ---- 4. main path: the gphf CLI ----
         launches = {}
@@ -698,6 +1272,8 @@ def main() -> int:
             launches[name] = read_launches()
             d["out"], d["flags"], d["got"] = out, flags, None
             check(K1.launches > 0, f"{name}: the plan kernel never ran")
+            check(K1.launches_compact_a == K1.launches_compact_b == 0,
+                  f"{name}: the default route launched a compacted kernel")
             got = read_output(out)
             got_set = set(map(tuple, got.tolist()))
             missing = [p for p in d["planted"] if p not in got_set]
@@ -896,7 +1472,47 @@ def main() -> int:
                 device=device)))
         del small
 
+        # ---- 4e. the compacted plan scan: parity, then its path ----
+        for name, d in dicts.items():
+            rows, overflow = compact_parity(name, d, device)
+            emit("compact_parity", dictionary=name,
+                 kernels=["plan_scan_compact_a", "planb_scan"],
+                 modes=["bitmap+segment", "bitmap+exact", "count"],
+                 equal=True, equal_to_plan_scan=True, cases=rows,
+                 forced_overflow=overflow)
+        for name, d in dicts.items():
+            reset_launches()
+            r = compact_path(name, d, device, matcher_mod)
+            launches[f"compact_path/{name}"] = r["launches"]
+            emit("compact_path", **r)
+
+        # ---- 4f. the rest of the single-device surface ----
+        # built plan tables ride along from here on, as --load-tables
+        # gives them to a fresh process
+        for d in dicts.values():
+            d["compiled"].plan_tables = d["matcher"].built_plan_tables()
+        ascii_d = dicts["ascii50k"]
+        emit("device_data", dictionary="ascii50k",
+             corpus_bytes=len(ascii_d["corpus"]),
+             **device_data_phase(ascii_d))
+        emit("stream", dictionary="clamav5k",
+             **stream_phase(clam, clam["cfg"], clam["corpus"], FEED, device))
+        exact = PfacConfig(width=4096, num_shards=4, truncation="none")
+        emit("stream", dictionary="ascii50k",
+             **stream_phase(ascii_d, exact, ascii_d["corpus"][:CHUNK], FEED,
+                            device))
+        emit("match_many", dictionary="clamav5k",
+             **match_many_phase(clam, rng, device))
+        for name, d in dicts.items():
+            emit("tables", **tables_phase(name, d, tmp))
+        emit("charset", **charset_phase(
+            np.random.default_rng(args.seed + 2), tmp, device))
+
     # ---- 5. times ----
+    ct = {name: compact_times(name, d) for name, d in dicts.items()}
+    for name, r in ct.items():
+        emit("compact_times", dictionary=name,
+             per="16 MiB chunk, 4 shards", **r)
     k3, k4, k5 = time_new_kernels(lower["recs"], phf_singles, phf_multi,
                                   clam["phf_data"], clam_n, clam_ms)
     for label, r, per in (
@@ -961,7 +1577,30 @@ def main() -> int:
              plain_ms=k5["plain_ms"],
              bound_ms=k5["bound_ms"], bound_by="bytes", library_ms=None,
              library_note=NO_LIBRARY, detail={"clamav5k": k5}),
+        dict(name="plan_scan_compact_a", route="cuda",
+             source="phfpfac_tpu_torch/csrc/plan_scan.cu",
+             replaces="phfpfac_tpu/ops/pallas_plan.py:1292",
+             launches=launches["compact_path/ascii50k"][
+                 "plan_scan_compact_a"],
+             max_abs_err=MAX_ERR["plan_scan_compact_a"],
+             ms=ct["ascii50k"]["a_ms"],
+             plain_ms=ct["ascii50k"]["a_plain_ms"],
+             bound_ms=ct["ascii50k"]["a_bound_ms"], bound_by="bytes",
+             library_ms=None, library_note=NO_LIBRARY, detail=ct),
+        dict(name="planb_scan", route="cuda",
+             source="phfpfac_tpu_torch/csrc/planb_scan.cu",
+             replaces="phfpfac_tpu/ops/pallas_plan.py:1109",
+             launches=launches["compact_path/ascii50k"]["planb_scan"],
+             max_abs_err=MAX_ERR["planb_scan"],
+             ms=ct["ascii50k"]["b_ms"],
+             plain_ms=ct["ascii50k"]["b_plain_ms"],
+             bound_ms=ct["ascii50k"]["b_bound_ms"], bound_by="bytes",
+             library_ms=None, library_note=NO_LIBRARY,
+             detail={"launches": {k: v for k, v in launches.items()
+                                  if k.startswith("compact_path")}}),
     ]
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,4 +20,8 @@ from phfpfac_tpu_torch.frontend.patterns import (  # noqa: F401
     shard_patterns,
 )
 from phfpfac_tpu_torch.parallel.matcher import Matcher  # noqa: F401
+from phfpfac_tpu_torch.parallel.stream import (  # noqa: F401
+    StreamMatcher,
+    match_many,
+)
 from phfpfac_tpu_torch.utils.config import PfacConfig  # noqa: F401

@@ -4,7 +4,7 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes``; no PyTorch headers are
 involved, so a build takes seconds.  Libraries are cached under
 ``build/kernels/<hash>/`` at the repository root, keyed by the source
-text and the compiler flags, and built at the first CUDA launch (or
+text, the shared headers (``csrc/*.cuh``) and the compiler flags, and built at the first CUDA launch (or
 up front, in parallel, by ``build_all``).  A failed build raises.
 """
 
@@ -24,7 +24,7 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("plan_scan", "depth_scan", "pair_scan", "phf_scan")
+SOURCES = ("plan_scan", "planb_scan", "depth_scan", "pair_scan", "phf_scan")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -42,6 +42,8 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # shared by the sources
+        h.update(header.read_bytes())
     h.update(" ".join(FLAGS).encode())
     return BUILD / h.hexdigest()[:16] / f"lib{name}.so"
 

@@ -22,9 +22,13 @@ Notes on fidelity:
 * ``--device cpu`` runs the kernels' plain torch versions; the default
   is the CUDA device, and its absence is an error.
 * ``--engine turbo|jnp`` scan with torch ops instead of the kernels.
-  ``--charset``, ``--save-tables``, ``--load-tables``, ``--profile``,
-  ``--mesh`` and the multi-host flags are not ported and exit with the
-  ROADMAP.md item that will bring them.
+* ``--save-tables`` writes the compiled dictionary (``.npz``) at once
+  and, after a kernel-engine scan, again with the plan tables that scan
+  built (format v3); ``--load-tables`` then skips the trie and plan
+  builds.  The files are interchangeable with the JAX package's.
+* ``--charset`` reads ``[a-z]`` / ``[^...]`` classes in the patterns.
+* ``--profile``, ``--mesh`` and the multi-host flags are not ported and
+  exit with the ROADMAP.md item that will bring them.
 """
 
 from __future__ import annotations
@@ -33,7 +37,12 @@ import argparse
 import os
 import sys
 
-from phfpfac_tpu_torch.compile.tables import compile_dictionary
+from phfpfac_tpu_torch.compile.tables import (
+    CompiledDictionary,
+    compile_class_patterns,
+    compile_dictionary,
+)
+from phfpfac_tpu_torch.frontend.charset import read_class_patterns
 from phfpfac_tpu_torch.parallel.matcher import Matcher, resolve_device
 from phfpfac_tpu_torch.parallel.merge import render_result_file
 from phfpfac_tpu_torch.utils.config import PfacConfig
@@ -41,9 +50,6 @@ from phfpfac_tpu_torch.utils.timing import PhaseTimer
 
 # flags of paths the port does not have yet -> the ROADMAP.md item
 _NOT_PORTED = {
-    "charset": "queue 1, 'Serialization and --charset'",
-    "save_tables": "queue 1, 'Serialization and --charset'",
-    "load_tables": "queue 1, 'Serialization and --charset'",
     "profile": "queue 2, 'bench/ probes and tracing'",
     "mesh": "queue 1, 'Multi-GPU'",
     "coordinator": "queue 1, 'Multi-GPU'",
@@ -81,11 +87,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--escapes", action="store_true",
                    help="decode \\xNN, \\ooo and C escapes in patterns (fgetc_ext)")
     p.add_argument("--charset", action="store_true",
-                   help="charset classes in patterns (not ported yet)")
+                   help="enable [a-z] / [^...] charset classes in patterns "
+                        "(NFA->DFA frontend; shards like plain dicts)")
     p.add_argument("--save-tables", default=None,
-                   help="serialize compiled tables (not ported yet)")
+                   help="serialize compiled tables to this .npz path")
     p.add_argument("--load-tables", default=None,
-                   help="load compiled tables (not ported yet)")
+                   help="load compiled tables instead of building")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="trace the match phase (not ported yet)")
@@ -120,10 +127,23 @@ def main(argv: list[str] | None = None) -> int:
     timer = PhaseTimer()
 
     with timer.phase("create_pfac"):
-        compiled = compile_dictionary(
-            args.pattern_file, cfg, escapes=args.escapes,
-            verbose=not args.quiet,
-        )
+        if args.load_tables:
+            compiled = CompiledDictionary.load(args.load_tables)
+        elif args.charset:
+            compiled = compile_class_patterns(
+                read_class_patterns(args.pattern_file), cfg
+            )
+        else:
+            compiled = compile_dictionary(
+                args.pattern_file, cfg, escapes=args.escapes,
+                verbose=not args.quiet,
+            )
+    # save at once (a failed scan must not cost the compile); a
+    # kernel-engine run saves again after the scan, so that the plan
+    # tables it built ride along and a later --load-tables run skips the
+    # trie + plan build
+    if args.save_tables:
+        compiled.save(args.save_tables)
 
     for i, sh in enumerate(compiled.shards):
         if not args.quiet:
@@ -146,6 +166,11 @@ def main(argv: list[str] | None = None) -> int:
     text = render_result_file(
         matcher.match_chunked(data, input_size=input_size)
     )
+    if args.save_tables and args.engine == "pallas":
+        plan = matcher.built_plan_tables()
+        if any(p is not None for p in plan):
+            compiled.plan_tables = plan
+            compiled.save(args.save_tables)
     with open(args.output, "w") as f:
         f.write(text)
 

@@ -386,6 +386,67 @@ def compile_patterns(
     )
 
 
+def compile_class_patterns(class_patterns, config: PfacConfig) -> CompiledDictionary:
+    """Compile charset-class patterns (frontend.charset) into device tables.
+
+    Sharding: class patterns have no memcmp order (their elements are
+    byte SETS), so the contiguous split runs in FILE order and each
+    group is determinized into its own DFA shard — the sharding applies
+    to every dictionary kind, as in the reference
+    (create_table_reorder.c:253-274).  Output stays shard-count
+    invariant because charset dictionaries merge in the canonical
+    (pos, match length, pattern id) order (``CompiledDictionary.
+    charset``; parallel/merge.py) — which equals the single-shard
+    shard-major order, since a DFA final's output list is
+    ascending-pid and all its patterns share one length.
+    Multi-output final states are carried in ``output_lists`` and
+    expanded at merge time.
+    """
+    from concurrent.futures import ThreadPoolExecutor
+
+    from phfpfac_tpu_torch.frontend.charset import build_class_trie
+
+    # same contiguous split as plain dicts (divide_patterns semantics,
+    # incl. the empty-leading-shards degenerate case) — shard_patterns
+    # is pure slicing and works on any sequence
+    groups = shard_patterns(class_patterns, max(config.num_shards, 1))
+
+    def build_one(grp):
+        ct = build_class_trie(grp)
+        phf = build_phf(ct.table, config.width)
+        return ShardTables(
+            state_num=ct.state_num,
+            final_state_num=ct.final_state_num,
+            max_pat_len=ct.max_pat_len,
+            width=phf.width,
+            ht_size=phf.ht_size,
+            s0=np.ascontiguousarray(
+                ct.table[ct.initial_state], dtype=np.int32
+            ),
+            r=phf.r,
+            ht=phf.ht if phf.ht_size else np.full(1, -1, np.int32),
+            val=phf.val if phf.ht_size else np.full(1, -1, np.int32),
+            pattern_id_map=ct.pattern_id_map,
+            output_lists=ct.output_lists,
+            final_depths=ct.final_depths,
+        )
+
+    if len(groups) > 1:
+        with ThreadPoolExecutor(
+            max_workers=min(len(groups), os.cpu_count() or 4)
+        ) as pool:
+            shards = list(pool.map(build_one, groups))
+    else:
+        shards = [build_one(g) for g in groups]
+    return CompiledDictionary(
+        shards=shards,
+        max_pat_len=max((sh.max_pat_len for sh in shards), default=0),
+        num_patterns=len(class_patterns),
+        width=config.width,
+        charset=True,
+    )
+
+
 def compile_dictionary(
     pattern_file: str,
     config: PfacConfig,

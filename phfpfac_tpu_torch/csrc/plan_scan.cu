@@ -28,27 +28,28 @@
 // only the prologue and one or two probes.  The step specs sit in
 // shared memory; neighbouring threads read neighbouring stream words,
 // so the window loads coalesce.
+//
+// K1' (plan_scan_compact_a): the same kernel over the steps before a
+// compaction cut, which also hands on every walker that is still live
+// at the cut.  Replaces _make_plan_kernel with emit_surv, reached
+// through _plan_scan_bitmap_compact and _plan_scan_count_compact.  The
+// TPU kernel writes a displacement per position and leaves the
+// compaction to a nonzero + gather between the kernels; here a block
+// counts its live walkers (ballot per warp, prefix over the warps),
+// takes its slots with ONE atomicAdd on a device counter and writes
+// (pos, disp) into cap-sized buffers.  The counter keeps counting past
+// cap, so it is the true survivor total; entries past cap are dropped
+// and the caller rescans on count > cap.  Slots are ascending inside a
+// block and unordered across blocks; no output depends on the order.
+// Extra traffic: 8 B written per survivor instead of 4 B per position.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "plan_step.cuh"
 
 namespace {
 
-constexpr int kFields = 11;  // ops/plan.py STEP_FIELDS
-constexpr int kMaxSteps = 32;
-constexpr int kThreads = 256;
+using namespace plan;
 
-enum Field { KIND, DEPTH0, OFF, NB, K0, S_OFF, S_NB, S_K0, S_NIBBLE, MISS,
-             COL_BITS };
-
-__device__ __forceinline__ int probe(const int* __restrict__ banks, int off,
-                                     int nb, int k0, int idx) {
-  const int b = idx >> 7;  // arithmetic: a negative idx misses
-  if (b < k0 || b >= k0 + nb) return -1;
-  return __ldg(banks + (off + b - k0) * 128 + (idx & 127));
-}
-
-template <bool kBitmap, bool kSeg>
+template <bool kBitmap, bool kSeg, bool kSurv>
 __global__ void __launch_bounds__(kThreads)
 plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
                  const int* __restrict__ p0, int nb_p0,
@@ -58,7 +59,9 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
                  int p0_mode, int p0_miss, int seg, int halo,
                  int* __restrict__ cnt, int* __restrict__ bits, int shift,
                  const unsigned long long* __restrict__ prev,
-                 unsigned long long* __restrict__ total) {
+                 unsigned long long* __restrict__ total, int cap,
+                 int* __restrict__ surv_pos, int* __restrict__ surv_disp,
+                 int* __restrict__ surv_count) {
   __shared__ int steps[kMaxSteps * kFields];
   __shared__ unsigned int warp_sums[kThreads / 32];
   for (int i = threadIdx.x; i < n_steps * kFields; i += blockDim.x)
@@ -66,11 +69,12 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
   __syncthreads();
 
   const int pos = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint32_t dead = static_cast<uint32_t>(p0_miss);
   uint32_t out = 0;
+  uint32_t disp = dead;
   if (pos < n_pos) {
     const uint32_t cbm = (1u << cb) - 1u;
-    // chars a walker may read before the segment cut
-    const int room = kSeg ? (pos & ~(seg - 1)) + seg + halo - pos : 0;
+    const int room = kSeg ? segment_room(pos, seg, halo) : 0;
 
     // ---- prologue at offset 0 ----
     const uint32_t c0 = static_cast<uint32_t>(pairs[pos]);
@@ -85,7 +89,6 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
       idx = static_cast<int>(c0 & cbm);
     }
     const int v = probe(p0, 0, nb_p0, 0, idx);
-    uint32_t disp = static_cast<uint32_t>(p0_miss);
     if (v >= 0) {
       const uint32_t uv = static_cast<uint32_t>(v);
       out = uv & 1u;
@@ -97,69 +100,8 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
       }
     }
 
-    // ---- the step chain ----
-    const uint32_t dead = static_cast<uint32_t>(p0_miss);
-    const uint32_t pair_mask = (1u << (2 * cb)) - 1u;
-    const uint32_t pair_fin = 1u << (2 * cb);
-    for (int s = 0; s < n_steps && disp != dead; ++s) {
-      const int* sp = steps + s * kFields;
-      const int o = sp[DEPTH0] - 1;  // char offset of the step's window
-      if (kSeg && !(room > o)) break;  // cut: the walk reads no further
-      const uint32_t cur = static_cast<uint32_t>(pairs[pos + o]);
-      const uint32_t miss = static_cast<uint32_t>(sp[MISS]);
-      if (sp[KIND] == 0) {  // mono
-        const int colb = sp[COL_BITS];
-        uint32_t cmask, finm;
-        int vsh;
-        if (colb) {  // split step: only col_bits symbol bits verify
-          cmask = (1u << colb) - 1u;
-          finm = 1u << (colb + 1);
-          vsh = colb + 2;
-        } else {
-          cmask = cbm;
-          finm = 1u << cb;
-          vsh = cb + 1;
-        }
-        const uint32_t sym = cur & cmask;
-        const uint32_t g = static_cast<uint32_t>(
-            probe(packed, sp[OFF], sp[NB], sp[K0],
-                  static_cast<int>(disp + sym)));
-        const uint32_t gs = g & ((1u << vsh) - 1u);
-        const bool fin = gs == (sym | finm);
-        if (fin) out |= 1u << o;
-        disp = (fin || gs == sym) ? (g >> vsh) : miss;
-      } else {  // pair + side table
-        const uint32_t g = static_cast<uint32_t>(
-            probe(packed, sp[OFF], sp[NB], sp[K0],
-                  static_cast<int>(disp + cur)));
-        const uint32_t a1 = cur & cbm;
-        const uint32_t sidx = disp + a1;
-        bool fin_mid;
-        if (sp[S_NIBBLE]) {
-          const uint32_t w = static_cast<uint32_t>(
-              probe(side, sp[S_OFF], sp[S_NB], sp[S_K0],
-                    static_cast<int>(sidx >> 3)));
-          fin_mid = ((w >> ((sidx & 7u) << 2)) & 15u) == (a1 & 7u) + 1u;
-        } else {
-          const uint32_t w = static_cast<uint32_t>(
-              probe(side, sp[S_OFF], sp[S_NB], sp[S_K0],
-                    static_cast<int>(sidx >> 2)));
-          fin_mid = ((w >> ((sidx & 3u) << 3)) & 255u) == a1 + 1u;
-        }
-        const uint32_t gs = g & (pair_mask | pair_fin);
-        bool fin_end = gs == (cur | pair_fin);
-        bool hit = fin_end || gs == cur;
-        if (kSeg && !(room > o + 1)) {
-          // cut between the pair's two chars: the mid completion
-          // stands, the end match and the chain do not
-          fin_end = false;
-          hit = false;
-        }
-        if (fin_mid) out |= 1u << o;
-        if (fin_end) out |= 1u << (o + 1);
-        disp = hit ? (g >> (2 * cb + 1)) : miss;
-      }
-    }
+    walk_steps<kSeg>(steps, n_steps, pairs, pos, room, cb, dead, packed,
+                     side, disp, out);
     if (kBitmap) {
       cnt[pos] = __popc(out);
       bits[pos] = static_cast<int>(out);
@@ -167,18 +109,69 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
   }
 
   if (!kBitmap) {
-    int sh = shift;
-    if (prev) sh = static_cast<int>((*prev + static_cast<unsigned>(shift)) & 1ull);
-    unsigned int c = (pos < n_pos && pos >= sh) ? __popc(out) : 0u;
-    for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(0xffffffffu, c, d);
-    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
+    const int sh = count_shift(shift, prev);
+    block_add((pos < n_pos && pos >= sh) ? __popc(out) : 0u, warp_sums,
+              total);
+  }
+
+  if (kSurv) {
+    // append the walkers still live at the cut; one atomic per block
+    __shared__ int warp_base[kThreads / 32];
+    __shared__ int block_base;
+    const bool live = disp != dead;  // pos >= n_pos stays dead
+    const unsigned int m = __ballot_sync(0xffffffffu, live);
+    const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+    if (lane == 0) warp_base[wid] = __popc(m);
     __syncthreads();
     if (threadIdx.x == 0) {
-      unsigned long long s = 0;
-      for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-      if (s) atomicAdd(total, s);
+      int n = 0;
+      for (int w = 0; w < kThreads / 32; ++w) {
+        const int c = warp_base[w];
+        warp_base[w] = n;
+        n += c;
+      }
+      block_base = n ? atomicAdd(surv_count, n) : 0;
+    }
+    __syncthreads();
+    if (live) {
+      const int slot =
+          block_base + warp_base[wid] + __popc(m & ((1u << lane) - 1u));
+      if (slot < cap) {
+        surv_pos[slot] = pos;
+        surv_disp[slot] = static_cast<int>(disp);
+      }
     }
   }
+}
+
+int launch(const int* pairs, int n_pos, const int* p0, int nb_p0,
+           const int* packed, const int* side, const int* steps,
+           int n_steps, int cb, int p0_mode, int p0_miss, int seg, int halo,
+           int emit_bitmap, int* cnt, int* bits, int shift,
+           const long long* prev, long long* total, int cap, int* surv_pos,
+           int* surv_disp, int* surv_count, void* stream) {
+  if (n_steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pos <= 0) return 0;
+  const dim3 grid((n_pos + kThreads - 1) / kThreads);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* up = reinterpret_cast<const unsigned long long*>(prev);
+  auto* ut = reinterpret_cast<unsigned long long*>(total);
+#define PLAN_LAUNCH(B, S, V)                                                \
+  plan_scan_kernel<B, S, V><<<grid, kThreads, 0, st>>>(                     \
+      pairs, n_pos, p0, nb_p0, packed, side, steps, n_steps, cb, p0_mode,   \
+      p0_miss, seg, halo, cnt, bits, shift, up, ut, cap, surv_pos,          \
+      surv_disp, surv_count)
+#define PLAN_LAUNCH_V(B, S)                                                 \
+  if (surv_count) PLAN_LAUNCH(B, S, true); else PLAN_LAUNCH(B, S, false)
+  const bool s = seg > 0;
+  if (emit_bitmap) {
+    if (s) { PLAN_LAUNCH_V(true, true); } else { PLAN_LAUNCH_V(true, false); }
+  } else {
+    if (s) { PLAN_LAUNCH_V(false, true); } else { PLAN_LAUNCH_V(false, false); }
+  }
+#undef PLAN_LAUNCH_V
+#undef PLAN_LAUNCH
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -190,22 +183,23 @@ extern "C" int plan_scan(const int* pairs, int n_pos, const int* p0,
                          int* cnt, int* bits, int shift,
                          const long long* prev, long long* total,
                          void* stream) {
-  if (n_steps > kMaxSteps) return static_cast<int>(cudaErrorInvalidValue);
-  if (n_pos <= 0) return 0;
-  const dim3 grid((n_pos + kThreads - 1) / kThreads);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* up = reinterpret_cast<const unsigned long long*>(prev);
-  auto* ut = reinterpret_cast<unsigned long long*>(total);
-#define PLAN_LAUNCH(B, S)                                                   \
-  plan_scan_kernel<B, S><<<grid, kThreads, 0, st>>>(                        \
-      pairs, n_pos, p0, nb_p0, packed, side, steps, n_steps, cb, p0_mode,   \
-      p0_miss, seg, halo, cnt, bits, shift, up, ut)
-  const bool s = seg > 0;
-  if (emit_bitmap) {
-    if (s) PLAN_LAUNCH(true, true); else PLAN_LAUNCH(true, false);
-  } else {
-    if (s) PLAN_LAUNCH(false, true); else PLAN_LAUNCH(false, false);
-  }
-#undef PLAN_LAUNCH
-  return static_cast<int>(cudaGetLastError());
+  return launch(pairs, n_pos, p0, nb_p0, packed, side, steps, n_steps, cb,
+                p0_mode, p0_miss, seg, halo, emit_bitmap, cnt, bits, shift,
+                prev, total, 0, nullptr, nullptr, nullptr, stream);
+}
+
+// K1': the first `n_steps` steps only; appends (pos, disp) of every
+// walker live after them to surv_pos/surv_disp[cap] and adds their
+// number to *surv_count (zeroed by the caller).
+extern "C" int plan_scan_compact_a(
+    const int* pairs, int n_pos, const int* p0, int nb_p0, const int* packed,
+    const int* side, const int* steps, int n_steps, int cb, int p0_mode,
+    int p0_miss, int seg, int halo, int emit_bitmap, int* cnt, int* bits,
+    int shift, const long long* prev, long long* total, int cap,
+    int* surv_pos, int* surv_disp, int* surv_count, void* stream) {
+  if (!surv_pos || !surv_disp || !surv_count || cap <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(pairs, n_pos, p0, nb_p0, packed, side, steps, n_steps, cb,
+                p0_mode, p0_miss, seg, halo, emit_bitmap, cnt, bits, shift,
+                prev, total, cap, surv_pos, surv_disp, surv_count, stream);
 }

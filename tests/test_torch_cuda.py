@@ -289,3 +289,147 @@ def test_matcher_on_cuda_equals_oracle(trunc, dev):
     data = data[:20000]
     got = [tuple(x) for x in m.match_chunked(data, chunk_bytes=4096)]
     assert got == match_oracle(pats, data, cfg)
+
+
+# ---- the compacted plan scan: K1' (plan_scan_compact_a) and K6 (planb_scan)
+
+def _sorted_survivors(surv, cap):
+    pos, disp, count = surv
+    n = min(int(count), cap)
+    order = torch.argsort(pos[:n])
+    return pos[:n][order], disp[:n][order]
+
+
+def _fit_cap(count: int) -> int:
+    return (count // K1.COMPACT_BLOCK + 1) * K1.COMPACT_BLOCK
+
+
+@pytest.mark.parametrize("emit", ["bitmap", "count"])
+@pytest.mark.parametrize("name", ["dense", "s0", "s0x"])
+def test_compacted_kernels_equal_plain(name, emit, dev):
+    """K1' alone, K6 alone on the plain version's survivors, and the
+    pair, at a cap a little above the survivor count; segment cuts small
+    enough that walkers die of the cut on both sides of the compaction
+    cut."""
+    ps, staged, _ds, _st2, _n = _scanners(name, dev, True)
+    t = ps.tables
+    n_steps = len(t.spec)
+    assert n_steps >= 2
+    a0, b0 = K1.launches_compact_a, K1.launches_compact_b
+    runs = 0
+    for cut in sorted({1, max(1, n_steps // 2), n_steps - 1}):
+        for seg, halo in GEOMS:
+            kw = dict(cut=cut, emit=emit, seg_bytes=seg, halo_bytes=halo,
+                      shift=1)
+            _res, all_surv = K1.plan_scan_compact_a_plain(
+                staged, t, cap=1 << 30, **kw)
+            count = int(all_surv[2])
+            cap = _fit_cap(count)
+            want_res, want_surv = K1.plan_scan_compact_a_plain(
+                staged, t, cap=cap, **kw)
+            res, surv = K1.plan_scan_compact_a(staged, t, cap=cap, **kw)
+            assert int(surv[2]) == count and surv[0].numel() >= count
+            if emit == "bitmap":
+                assert torch.equal(res[0], want_res[0])
+                assert torch.equal(res[1], want_res[1])
+            else:
+                assert int(res) == int(want_res)
+            gp, gd = _sorted_survivors(surv, cap)
+            wp, wd = _sorted_survivors(want_surv, cap)
+            assert torch.equal(gp, wp) and torch.equal(gd, wd)
+            # K6 on the plain version's survivors, padded to cap
+            pad = torch.zeros(cap - wp.numel(), dtype=torch.int32,
+                              device=dev)
+            fed = (torch.cat([want_surv[0], pad]),
+                   torch.cat([want_surv[1], pad]), want_surv[2])
+            K1.planb_scan(staged, t, res, fed, cap=cap, **kw)
+            K1.planb_scan_plain(staged, t, want_res, want_surv, cap=cap,
+                                **kw)
+            whole = K1.plan_scan(staged, t, emit=emit, seg_bytes=seg,
+                                 halo_bytes=halo, shift=1)
+            if emit == "bitmap":
+                assert torch.equal(res[0], want_res[0])
+                assert torch.equal(res[1], want_res[1])
+                assert torch.equal(res[1], whole[1])
+            else:
+                assert int(res) == int(want_res) == int(whole)
+            # the pair through its own wrapper, unordered slots and all
+            got = K1.plan_scan_compact(staged, t, cap=cap, **kw)
+            assert int(got[-1]) == count
+            if emit == "bitmap":
+                assert torch.equal(got[0], whole[0])
+                assert torch.equal(got[1], whole[1])
+            else:
+                assert int(got[0]) == int(whole)
+            runs += 1
+    torch.cuda.synchronize()
+    assert K1.launches_compact_a == a0 + 2 * runs
+    assert K1.launches_compact_b == b0 + 2 * runs
+
+
+def test_compacted_chain_reads_the_previous_total(dev):
+    ps, staged, _ds, _st2, _n = _scanners("dense", dev, True)
+    t = ps.tables
+    cut = max(1, len(t.spec) // 2)
+    for prev in (4, 7):
+        p = torch.tensor([prev], dtype=torch.int64, device=dev)
+        for shift in (0, 1):
+            got, count = K1.plan_scan_compact(
+                staged, t, cut=cut, cap=65536, emit="count", shift=shift,
+                prev_total=p)
+            want = K1.plan_scan_plain(staged, t, emit="count", shift=shift,
+                                      prev_total=p)
+            assert int(got) == int(want) and int(count) <= 65536
+
+
+def test_compacted_overflow_is_reported_and_rescanned(dev):
+    """A cap far below the survivors: the count is the true one, the
+    wrapper's result is incomplete, the scanner's is not."""
+    words, data = _dictionary("dense")
+    data = data * 8
+    cfg = PfacConfig(width=4096, num_shards=1, truncation="none")
+    sh = compile_patterns([Pattern(i + 1, w) for i, w in enumerate(words)],
+                          cfg).shards[0]
+    ms = padded_steps(sh.max_pat_len)
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    cap = K1.COMPACT_BLOCK
+    sc = K1.PlanShardScanner(sh, device=dev, train=data[:8192],
+                             compact=(1, cap))
+    staged = sc.stage(padded, len(data), ms)
+    _c, bits, count = K1.plan_scan_compact(staged, sc.tables, cut=1, cap=cap)
+    _r, surv = K1.plan_scan_compact_a_plain(staged, sc.tables, cut=1,
+                                            cap=1 << 30)
+    assert int(count) == int(surv[2]) > 2 * cap
+    whole = K1.plan_scan(staged, sc.tables)
+    assert not torch.equal(bits, whole[1])
+    before = K1.overflow_rescans
+    cnt, bits = sc.scan(padded, len(data), cfg, ms)
+    assert K1.overflow_rescans == before + 1
+    assert torch.equal(bits, whole[1]) and torch.equal(cnt, whole[0])
+    cs = K1.PlanCountScan(sh, ms, device=dev, train=data[:8192],
+                          compact=(1, cap))
+    cs(padded, len(data), 0)
+    assert cs.check_overflow() and not cs.check_overflow()
+    with pytest.raises(ValueError):
+        K1.planb_scan(staged, sc.tables, whole,
+                      (surv[0][:100], surv[1][:100], surv[2]), cut=1,
+                      cap=cap)
+
+
+def test_matcher_compacts_on_cuda_with_the_opt_in(dev, monkeypatch):
+    words, data = _dictionary("dense")
+    cfg = PfacConfig(width=256, num_shards=2, truncation="segment",
+                     segment_bytes=512, halo_bytes=8)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    compiled = compile_patterns(pats, cfg)
+    want = match_oracle(pats, data, cfg)
+    monkeypatch.setenv(K1.AUTO_OPT_IN, "1")
+    a0, b0 = K1.launches_compact_a, K1.launches_compact_b
+    m = Matcher(compiled, cfg, train=data[:8192])
+    assert [tuple(x) for x in m.match(data)] == want
+    assert K1.launches_compact_a == a0 + 2
+    assert K1.launches_compact_b == b0 + 2
+    staged = m.stage_for_chunked(data, chunk_bytes=8192)
+    assert staged.device.type == "cuda"
+    got = m.match_chunked(data, chunk_bytes=8192, device_data=staged)
+    assert [tuple(x) for x in got] == want

@@ -36,6 +36,30 @@ total = int(engine_select.best_count_scanner(sh, ms, device="cpu")(
 for make in (pair.pair_count_scanner, scan.pallas_count_scanner,
              engine_select.xla_count_scanner):
     assert int(make(sh, ms, device="cpu")(padded, len(data), 0)) == total
+from phfpfac_tpu_torch.compile.tables import compile_class_patterns
+from phfpfac_tpu_torch.frontend.charset import parse_class_pattern
+from phfpfac_tpu_torch.oracle.ac import match_oracle_charset
+from phfpfac_tpu_torch.ops import plan
+from phfpfac_tpu_torch.parallel.stream import StreamMatcher, match_many
+sm = StreamMatcher(m.compiled, cfg, device="cpu")
+fed = [tuple(x) for k in range(0, len(data), 1000)
+       for x in sm.feed(data[k:k + 1000]).tolist()]
+assert sorted(fed) == sorted(got)
+assert sum(len(o) for o in match_many(m, [data[:500], data[500:900]])) > 0
+staged = m.stage_for_chunked(data, chunk_bytes=2048)
+assert [tuple(x) for x in m.match_chunked(
+    data, chunk_bytes=2048, device_data=staged).tolist()] == got
+cps = [parse_class_pattern(b"[sh]e", 1), parse_class_pattern(b"he[rs]", 2)]
+cm = P.Matcher(compile_class_patterns(cps, cfg), cfg, device="cpu")
+assert [tuple(x) for x in cm.match(data).tolist()] == \
+    match_oracle_charset(cps, data, cfg)
+sh1 = m.compiled.shards[1]  # "hers", "she": two steps past the prologue
+sc = plan.PlanCountScan(sh1, ms, device="cpu", compact=(1, 32768))
+big = pad_input(data * 8, 1024, ms)
+off = plan.PlanCountScan(sh1, ms, device="cpu", compact="off")
+assert int(sc(big, len(data) * 8, 0)) == int(off(big, len(data) * 8, 0)) \
+    >= 8 * 600
+assert plan.compact_scans == 1 and not sc.check_overflow()
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                 ("jax", "jaxlib", "phfpfac_tpu") and sys.modules[k])
 assert not loaded, loaded
@@ -64,7 +88,7 @@ def test_no_jax_imports_in_port_sources():
     assert len(files) > 25
     names = {f.name for f in files}
     assert {"turbo.py", "reference.py", "scan.py", "pair.py",
-            "engine_select.py"} <= names
+            "engine_select.py", "stream.py", "charset.py"} <= names
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in BANNED, f"{f}: imports {mod}"

@@ -117,18 +117,76 @@ def test_compiled_from_jax_npz(tmp_path):
 
 
 def test_unported_paths_raise():
-    # upload-free chunking (stage_for_chunked / device_data) is the one
-    # single-device Matcher path the port does not have
+    # every single-device Matcher path is ported; what is left to refuse
+    # is a staged corpus of another chunk geometry and an unknown engine
     words, data = _corpus(3, n_words=20)
     cfg = PfacConfig(width=256, num_shards=1)
     tm = Matcher(compile_patterns(
         [Pattern(i + 1, w) for i, w in enumerate(words)], cfg), cfg,
         device="cpu")
-    assert not hasattr(tm, "stage_for_chunked")
-    with pytest.raises(TypeError, match="device_data"):
-        tm.match_chunked(data, device_data=data)
+    short = tm.stage_for_chunked(data, chunk_bytes=512)
+    with pytest.raises(ValueError, match="device_data too short"):
+        tm.match_chunked(data, chunk_bytes=2048, device_data=short)
     with pytest.raises(ValueError, match="engine"):
         Matcher(tm.compiled, cfg, engine="xla", device="cpu")
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_device_resident_chunking_equals_chunked_and_match(trunc):
+    """One upload (stage_for_chunked), every window a view of it."""
+    words, data = _corpus(12, size=9000)
+    cfg = _cfg(PfacConfig, 3, trunc)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    tm = Matcher(compile_patterns(pats, cfg), cfg, device="cpu")
+    staged = tm.stage_for_chunked(data, chunk_bytes=1024)
+    assert isinstance(staged, torch.Tensor) and staged.dtype == torch.uint8
+    windows = []
+    real = tm._dispatch
+    tm._dispatch = lambda w, n, padded_dev=None: (
+        windows.append(padded_dev) or real(w, n, padded_dev=padded_dev))
+    got = tm.match_chunked(data, chunk_bytes=1024, device_data=staged)
+    assert len(windows) == 9 and len({w.shape for w in windows}) == 1
+    assert all(w.untyped_storage().data_ptr()
+               == staged.untyped_storage().data_ptr() for w in windows)
+    chunked = tm.match_chunked(data, chunk_bytes=1024)
+    assert windows[-1] is None  # the plain loop pads and uploads itself
+    want = match_oracle(pats, data, cfg)
+    assert [tuple(x) for x in got.tolist()] == want
+    assert [tuple(x) for x in chunked.tolist()] == want
+    assert [tuple(x) for x in tm.match(data).tolist()] == want
+    # input_size below the staged length, as the CLI passes it
+    part = tm.match_chunked(data, input_size=len(data) - 1,
+                            chunk_bytes=1024, device_data=staged)
+    assert [tuple(x) for x in part.tolist()] == \
+        match_oracle(pats, data[:-1], cfg)
+
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_compaction_opt_in_gives_the_same_matches(monkeypatch, trunc):
+    """With the opt-in set and a trained scanner, "auto" compacts; the
+    matches do not change, and without it no compacted scan is made."""
+    from phfpfac_tpu_torch.ops import plan as tplan
+
+    words, data = _corpus(21, n_words=200, size=45_000)
+    cfg = _cfg(PfacConfig, 2, trunc)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    compiled = compile_patterns(pats, cfg)
+    monkeypatch.delenv(tplan.AUTO_OPT_IN, raising=False)
+    before = tplan.compact_scans
+    want = Matcher(compiled, cfg, device="cpu", train=data[:8192]).match(data)
+    assert tplan.compact_scans == before
+    monkeypatch.setenv(tplan.AUTO_OPT_IN, "1")
+    tm = Matcher(compiled, cfg, device="cpu", train=data[:8192])
+    got = tm.match(data)
+    assert tplan.compact_scans == before + 2  # one per shard
+    assert all(isinstance(s, PlanShardScanner) and s.pt.trained
+               for s in tm._get_scanners())
+    np.testing.assert_array_equal(got, want)
+    assert [tuple(x) for x in got.tolist()] == match_oracle(pats, data, cfg)
+    # chunks too small to compact (cap * 2 >= n_pos) scan uncompacted
+    chunked = tm.match_chunked(data, chunk_bytes=8192)
+    assert tplan.compact_scans == before + 2
+    np.testing.assert_array_equal(chunked, want)
 
 
 def _matchers(words, shards, trunc, engine, **kw):
