@@ -23,13 +23,13 @@
 // hold only cap walkers: the result is then incomplete by design and
 // the caller must rescan (ops/plan.py verify / check_overflow).
 //
-// What bounds it on an H100: per survivor 8 B of (pos, disp), one 32 B
-// sector for each window it reads (survivors are scattered, so a window
-// load fetches a sector for one word), the dependent table gathers of
-// the deep steps (L2-resident tables), and in bitmap mode a read and a
-// write of one sector of bits and of cnt.  Survivors are a few percent
-// of the positions, so the kernel is small beside phase A; what the
-// compaction buys is full warps in the deep steps.
+// What it needs on an H100: per survivor 8 B of (pos, disp), one int32
+// for each window it reads, the dependent table gathers of the deep
+// steps (L2-resident tables), and in bitmap mode a read and a write of
+// one word of bits and of cnt.  Survivors are scattered, so the card
+// moves up to a 32 B sector for each of those words.  Survivors are a
+// few percent of the positions, so the kernel is small beside phase A;
+// what the compaction buys is full warps in the deep steps.
 
 #include "plan_step.cuh"
 

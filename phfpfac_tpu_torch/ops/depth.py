@@ -33,6 +33,7 @@ from phfpfac_tpu_torch.compile.depth import (
 from phfpfac_tpu_torch.compile.tables import ShardTables
 from phfpfac_tpu_torch.ops.plan import (
     CountScan,
+    ShardScanner,
     check_operand,
     count_total,
     popcount32,
@@ -178,7 +179,7 @@ def depth_scan(staged: torch.Tensor, t: DepthKernelTables, *,
     return _depth_scan_cuda(staged, t, **kw)
 
 
-class DepthShardScanner:
+class DepthShardScanner(ShardScanner):
     """Bitmap-mode depth scanner for one shard.
 
     Raises compile.depth.DepthUnsupported at construction when the

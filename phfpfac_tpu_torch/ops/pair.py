@@ -47,6 +47,7 @@ from phfpfac_tpu_torch.compile.pair import (
 from phfpfac_tpu_torch.compile.tables import ShardTables
 from phfpfac_tpu_torch.ops.plan import (
     CountScan,
+    ShardScanner,
     check_operand,
     count_total,
     popcount32,
@@ -215,7 +216,7 @@ def pair_scan(staged: torch.Tensor, t: PairKernelTables, *,
     return _pair_scan_cuda(staged, t, emit=emit, shift=shift)
 
 
-class PairShardScanner:
+class PairShardScanner(ShardScanner):
     """Bitmap-mode stride-2 scanner for one shard (exact mode only).
 
     Raises compile.pair.PairUnsupported at construction when the shard's

@@ -64,7 +64,6 @@ P0_MODES = {"dense": 0, "s0": 1, "s0x": 2}
 launches = 0  # CUDA kernel launches (the CPU plain path never counts)
 launches_compact_a = 0  # launches of the compacted scan's phase A ...
 launches_compact_b = 0  # ... and of its phase B
-compact_scans = 0  # entries into plan_scan_compact, on any device
 overflow_rescans = 0  # uncompacted rescans after count > cap
 
 
@@ -502,8 +501,6 @@ def planb_scan(staged: torch.Tensor, t: PlanKernelTables, result, surv, *,
 
 
 def _compact(phase_a, phase_b, staged, t, **kw):
-    global compact_scans
-    compact_scans += 1
     result, surv = phase_a(staged, t, **kw)
     phase_b(staged, t, result, surv, **kw)
     if kw["emit"] == "count":
@@ -615,7 +612,22 @@ def _segment_cut(cfg) -> tuple[int, int]:
     return cfg.segment_bytes, cfg.halo_bytes
 
 
-class PlanShardScanner:
+class ShardScanner:
+    """Bitmap-mode scanner of one shard.  A subclass defines ``scan`` ->
+    (per-position counts, per-position bitmaps) on the device."""
+
+    def scan(self, data_padded, input_size, cfg, max_steps):
+        raise NotImplementedError
+
+    def scan_async(self, data_padded, input_size, cfg, max_steps):
+        """Dispatch only, for pipelined callers: (cnt, bits, verify);
+        ``verify()``, called when the bitmaps are fetched, returns the
+        (cnt, bits) to decode.  Nothing waits for the device before it."""
+        cnt, bits = self.scan(data_padded, input_size, cfg, max_steps)
+        return cnt, bits, lambda: (cnt, bits)
+
+
+class PlanShardScanner(ShardScanner):
     """Bitmap-mode plan scanner for one shard."""
 
     def __init__(self, shard: ShardTables, *, device, train=None, pt=None,
@@ -642,12 +654,10 @@ class PlanShardScanner:
         return verify()
 
     def scan_async(self, data_padded, input_size, cfg, max_steps):
-        """Dispatch only, for pipelined callers: (cnt, bits, verify).
-        ``verify()``, called when the bitmaps are fetched, reads the
+        """As ``ShardScanner.scan_async``: ``verify()`` reads the
         compacted scan's true survivor count and, past the cap, rescans
         uncompacted and returns the corrected (cnt, bits); else it
-        returns the originals.  Nothing waits for the device before
-        ``verify()``."""
+        returns the originals."""
         seg, halo = _segment_cut(cfg)
         data = to_device_bytes(data_padded, self.device)
         staged = self.stage(data, input_size, max_steps)

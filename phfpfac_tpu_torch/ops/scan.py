@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from phfpfac_tpu_torch.compile.tables import ShardTables
-from phfpfac_tpu_torch.ops.plan import CountScan, check_operand
+from phfpfac_tpu_torch.ops.plan import CountScan, ShardScanner, check_operand
 from phfpfac_tpu_torch.ops.staging import LANE, TILE, to_device_bytes
 from phfpfac_tpu_torch.ops.turbo import TurboTables, build_turbo_tables
 
@@ -393,7 +393,7 @@ def _seg(cfg) -> int:
     return cfg.segment_bytes if cfg.truncation == "segment" else 0
 
 
-class PallasShardScanner:
+class PallasShardScanner(ShardScanner):
     """Scans one shard with the banked-PHF kernel; counts + bitmaps."""
 
     def __init__(self, shard: ShardTables, *, device):

@@ -446,20 +446,14 @@ class Matcher:
                     for s, shard in enumerate(self.compiled.shards)]
 
         def bitmap_dispatch(ds, st):
-            # the plan scanner's dispatch-only form: its verify(), run
-            # at resolve time, answers a compacted scan's cap overflow
-            # without a wait for the device at dispatch
-            if hasattr(ds, "scan_async"):
-                _cnt, bits, verify = ds.scan_async(
-                    padded, input_size, self.config, max_steps)
-            else:
-                _cnt, bits = ds.scan(padded, input_size, self.config,
-                                     max_steps)
-                verify = None
+            # dispatch only: verify(), run at resolve time, answers a
+            # compacted plan scan's cap overflow without a wait for the
+            # device at dispatch
+            _cnt, _bits, verify = ds.scan_async(
+                padded, input_size, self.config, max_steps)
 
-            def resolve(bits=bits):
-                if verify is not None:
-                    _cnt, bits = verify()
+            def resolve():
+                _cnt, bits = verify()
                 pos, hb = fetch_hit_bits(bits, input_size)
                 return decode_hits(hb, pos, data, input_size, st, max_steps)
 

@@ -295,6 +295,15 @@ def test_overflow_rescans_uncompacted():
     assert not torch.equal(_b, bits0)
 
 
+def _compact_calls(monkeypatch):
+    """A list that grows by one with each ``plan_scan_compact`` call."""
+    real, calls = tplan.plan_scan_compact, []
+    monkeypatch.setattr(
+        tplan, "plan_scan_compact",
+        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
 class _NoFetch:
     """Stands for the survivor count: converting it before ``armed`` is
     a host synchronisation that the dispatch must not make."""
@@ -342,7 +351,7 @@ def test_scan_async_does_not_fetch_the_count(monkeypatch):
     assert verify0()[1] is bits0 and torch.equal(bits0, bits)
 
 
-def test_count_scan_compacted_total_and_overflow():
+def test_count_scan_compacted_total_and_overflow(monkeypatch):
     c = _words_case()
     data, n = c["data"], len(c["data"])
     padded = pad_input(data, 1024, c["ms"])
@@ -351,9 +360,9 @@ def test_count_scan_compacted_total_and_overflow():
                           args=(c["ms"],))
     comp = _port_scanner(c, (cut, CAP), cls=tplan.PlanCountScan,
                          args=(c["ms"],))
-    before = tplan.compact_scans
+    calls = _compact_calls(monkeypatch)
     t0, t1 = int(plain(padded, n, 0)), int(comp(padded, n, 0))
-    assert tplan.compact_scans == before + 1
+    assert len(calls) == 1
     pats = [JaxPattern(i + 1, w) for i, w in enumerate(c["words"])]
     jcfg = JaxConfig(width=1024, num_shards=1, truncation="none")
     assert t0 == t1 == len(match_oracle(pats, data, jcfg))
@@ -398,7 +407,7 @@ def test_count_scan_chain_matches_jax():
 # ---- fuzz ------------------------------------------------------------------
 
 @pytest.mark.parametrize("seed", range(6))
-def test_fuzz_compacted_scanner_vs_jax_and_plain(seed):
+def test_fuzz_compacted_scanner_vs_jax_and_plain(monkeypatch, seed):
     """Random dictionaries and corpora, a cut at every feasible step
     index mod the plan length, tiny caps included (the overflow rescan):
     always the uncompacted result, and the JAX scanner's."""
@@ -430,9 +439,9 @@ def test_fuzz_compacted_scanner_vs_jax_and_plain(seed):
     n = len(data)
     padded = pad_input(data, 1024, c["ms"])
     cnt0, bits0 = _port_scanner(c, "off").scan(padded, n, cfg, c["ms"])
-    before = tplan.compact_scans
+    calls = _compact_calls(monkeypatch)
     cnt, bits = _port_scanner(c, (cut, cap)).scan(padded, n, cfg, c["ms"])
-    assert tplan.compact_scans == before + 1
+    assert len(calls) == 1
     assert torch.equal(bits, bits0) and torch.equal(cnt, cnt0)
     js = jplan.PlanShardScanner(jc.shards[0], interpret=True, pt=jpt,
                                 compact=(cut, cap))

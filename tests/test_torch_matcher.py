@@ -172,20 +172,23 @@ def test_compaction_opt_in_gives_the_same_matches(monkeypatch, trunc):
     pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
     compiled = compile_patterns(pats, cfg)
     monkeypatch.delenv(tplan.AUTO_OPT_IN, raising=False)
-    before = tplan.compact_scans
+    real, calls = tplan.plan_scan_compact, []
+    monkeypatch.setattr(
+        tplan, "plan_scan_compact",
+        lambda *a, **k: calls.append(1) or real(*a, **k))
     want = Matcher(compiled, cfg, device="cpu", train=data[:8192]).match(data)
-    assert tplan.compact_scans == before
+    assert not calls
     monkeypatch.setenv(tplan.AUTO_OPT_IN, "1")
     tm = Matcher(compiled, cfg, device="cpu", train=data[:8192])
     got = tm.match(data)
-    assert tplan.compact_scans == before + 2  # one per shard
+    assert len(calls) == 2  # one per shard
     assert all(isinstance(s, PlanShardScanner) and s.pt.trained
                for s in tm._get_scanners())
     np.testing.assert_array_equal(got, want)
     assert [tuple(x) for x in got.tolist()] == match_oracle(pats, data, cfg)
     # chunks too small to compact (cap * 2 >= n_pos) scan uncompacted
     chunked = tm.match_chunked(data, chunk_bytes=8192)
-    assert tplan.compact_scans == before + 2
+    assert len(calls) == 2
     np.testing.assert_array_equal(chunked, want)
 
 
