@@ -12,8 +12,12 @@ path, the exact-mode pair path, the banked-PHF path, ``--engine
 turbo|jnp``, the count scanners), then the two-phase compacted plan scan
 through ``Matcher.match_chunked`` on both dictionaries, the
 device-resident chunk loop, ``StreamMatcher`` / ``match_many``, the
-CLI's ``--save-tables`` / ``--load-tables`` and ``--charset``; checks
-every output, times the kernels and prints one JSON line per phase.  The last line is
+CLI's ``--save-tables`` / ``--load-tables`` and ``--charset``; then the
+two probe kernels (parity and their sweeps), the device mesh with four
+cells on the one card (plan, compacted plan, turbo and depth meshes),
+two cooperating CLI processes over gloo, ``--profile`` and the
+multi-device dry run; checks every output, times the kernels and prints
+one JSON line per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and exits
 non-zero.  Without a GPU, or without the package beside it, it exits
 non-zero and prints no result.
@@ -54,6 +58,9 @@ import time
 import numpy as np
 import torch
 
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from phfpfac_tpu_torch.utils.profile import cuda_ms  # noqa: E402
+
 DEVICE = "cuda"
 MIB = 1 << 20
 CHUNK = 16 * MIB  # the CLI's match_chunked window
@@ -75,7 +82,8 @@ def check(ok, what: str) -> None:
 
 # kernel vs plain, this run
 MAX_ERR = {"plan_scan": 0, "depth_scan": 0, "pair_scan": 0, "phf_scan": 0,
-           "phf_scan_multi": 0, "plan_scan_compact_a": 0, "planb_scan": 0}
+           "phf_scan_multi": 0, "plan_scan_compact_a": 0, "planb_scan": 0,
+           "probe_gather": 0, "probe_compact": 0}
 
 
 def agree(kernel: str, got, want, what: str) -> None:
@@ -87,8 +95,14 @@ def agree(kernel: str, got, want, what: str) -> None:
     check(err == 0, f"{what}: kernel != plain (max abs err {err})")
 
 
+T_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line for a phase, with the script's seconds so far."""
+    print(json.dumps({"phase": phase, **kw,
+                      "at_seconds": time.perf_counter() - T_START}),
+          flush=True)
 
 
 # ---- inputs ------------------------------------------------------------------
@@ -180,21 +194,7 @@ def nvidia_smi() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-# ---- timing ------------------------------------------------------------------
-
-def cuda_ms(fn, reps: int = 5) -> float:
-    """Mean device time of ``fn`` in ms (CUDA events, after warm-up)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
+# ---- bounds ------------------------------------------------------------------
 
 def bound_ms(n_pos: int, table_bytes: int, bitmap: bool, *,
              read_b: int = 4, bitmap_rows: int = 1) -> float:
@@ -312,31 +312,14 @@ def plain_match_count(kinds, matcher, corpus, input_size, device):
 
 def profile_match(matcher, corpus, input_size) -> dict:
     """Where one match phase's time goes: a torch.profiler trace of
-    ``match_chunked``; device busy time by kernel name over the wall
-    time (None where the trace shows no device time)."""
-    from torch.profiler import ProfilerActivity, profile
+    ``match_chunked`` (the tracer behind the CLI's ``--profile``); device
+    busy time by kernel name over the wall time (None where the trace
+    shows no device time)."""
+    from phfpfac_tpu_torch.utils.profile import trace
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with trace(device=DEVICE) as mt:
         matcher.match_chunked(corpus, input_size=input_size)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.key_averages():
-        # device-side events only: kernels, memcpys, memsets
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            name = e.key.replace("(anonymous namespace)", "anon")
-            if name.startswith("void "):  # a kernel: drop its arguments
-                name = re.sub(r"\(.*", "", name)[:60]
-            by_name[name] = (by_name.get(name, 0.0)
-                             + e.self_device_time_total / 1e6)
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return dict(wall_seconds=wall,
-                device_busy_seconds=busy if busy else None,
-                idle_share=1 - busy / wall if busy else None,
-                top_device_seconds=dict(top))
+    return mt.summary()
 
 
 def run_cli(args):
@@ -1087,6 +1070,483 @@ def charset_phase(rng, tmp, device):
 
 
 
+# ---- the probes --------------------------------------------------------------
+
+GATHER_T = 4 * MIB  # the kernels line's probe_gather: an int32 table this big
+SWEEP_KS = (1, 8)  # walkers a thread interleaves in the gather sweep here
+
+
+def probe_parity(device):
+    """P1 (every arm, every K, lane_probe's recurrence and the scattered
+    one) and P2 (1, 2, 6 planes; copy, in-block pack, atomic pack)
+    against their plain versions on the card."""
+    from phfpfac_tpu_torch.probes import compact, gather
+
+    rng = np.random.default_rng(1)
+    idx = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, MIB).astype(np.int32)).to(device)
+    cases = 0
+    for arm in gather.ARMS:
+        host = gather.make_table(rng, arm, 1 << 16)
+        table = None if host is None else torch.from_numpy(host).to(device)
+        for k in gather.KS:
+            for mul in (1, gather.SCATTER):
+                kw = dict(arm=arm, reps=5, k=k, mul=mul)
+                agree("probe_gather",
+                      [gather.probe_gather(table, idx, **kw)],
+                      [gather.probe_gather_plain(table, idx, **kw)],
+                      f"probe_gather {arm} k={k} mul={mul}")
+                cases += 1
+    disp = torch.from_numpy(compact.make_disp(rng, MIB)).to(device)
+    for m in compact.SWEEP_PLANES:
+        agree("probe_compact", compact.probe_compact(disp, m),
+              compact.probe_compact_plain(disp, m), f"probe_compact m={m}")
+        agree("probe_compact", compact.probe_copy(disp, m),
+              compact.probe_copy_plain(disp, m), f"probe_copy m={m}")
+        # tiles arrive in any order: the same values, as a multiset
+        agree("probe_compact",
+              compact.sorted_live(*compact.probe_compact_atomic(disp, m)),
+              compact.sorted_live(
+                  *compact.probe_compact_atomic_plain(disp, m)),
+              f"probe_compact_atomic m={m}")
+    return dict(gather_cases=cases, gather_walkers=MIB,
+                gather_table_entries=1 << 16, arms=list(gather.ARMS),
+                ks=list(gather.KS), compact_lanes=MIB,
+                planes=list(compact.SWEEP_PLANES), equal=True)
+
+
+def probes_phase(device):
+    """The probes' own path, ``python -m phfpfac_tpu_torch.probes``'s two
+    sweeps (interleaving 1 and 8 walkers a thread: the module sweeps 2
+    and 4 too), every timed shape held to its plain version first; then
+    each kernel, its plain version and (P2) the PyTorch call that
+    compacts the same input, timed at one shape for the kernels line and
+    compared there too."""
+    from phfpfac_tpu_torch.probes import compact, gather
+
+    gather.launches = compact.launches = 0
+    compact.launches_copy = compact.launches_atomic = 0
+    g_rows = list(gather.sweep(
+        device, ks=SWEEP_KS,
+        check=lambda got, want, what: agree("probe_gather", [got], [want],
+                                            what)))
+    c_rows = list(compact.sweep(
+        device,
+        check=lambda got, want, what: agree("probe_compact", got, want,
+                                            what)))
+    counts = dict(probe_gather=gather.launches,
+                  probe_compact=compact.launches,
+                  probe_copy=compact.launches_copy,
+                  probe_compact_atomic=compact.launches_atomic)
+
+    rng = np.random.default_rng(0)
+    walkers = gather.SWEEP_WALKERS
+    table = torch.from_numpy(
+        gather.make_table(rng, "i32", GATHER_T // 4)).to(device)
+    idx = torch.from_numpy(
+        rng.integers(0, 1 << 31, walkers).astype(np.int32)).to(device)
+    kw = dict(arm="i32", reps=8, k=1, mul=gather.SCATTER)
+    agree("probe_gather", [gather.probe_gather(table, idx, **kw)],
+          [gather.probe_gather_plain(table, idx, **kw)],
+          f"probe_gather at the kernels line's shape ({walkers} walkers)")
+    p1 = dict(
+        ms=cuda_ms(lambda: gather.probe_gather(table, idx, **kw)),
+        plain_ms=cuda_ms(lambda: gather.probe_gather_plain(table, idx, **kw),
+                         reps=2),
+        bound_ms=(8 * walkers + GATHER_T) / HBM_BYTES_PER_S * 1e3,
+        walkers=walkers, table_bytes=GATHER_T, **kw)
+    del table, idx
+    lanes = compact.SWEEP_LANES
+    disp = torch.from_numpy(compact.make_disp(rng, lanes)).to(device)
+    agree("probe_compact", compact.probe_compact(disp, 1),
+          compact.probe_compact_plain(disp, 1),
+          f"probe_compact at the kernels line's shape ({lanes} lanes)")
+    p2 = dict(
+        ms=cuda_ms(lambda: compact.probe_compact(disp, 1)),
+        copy_ms=cuda_ms(lambda: compact.probe_copy(disp, 1)),
+        plain_ms=cuda_ms(lambda: compact.probe_compact_plain(disp, 1),
+                         reps=2),
+        library_ms=cuda_ms(lambda: disp[disp != 0]),
+        torch_nonzero_ms=cuda_ms(lambda: torch.nonzero(disp)),
+        bound_ms=(8 * lanes + 4 * (lanes // compact.TILE))
+        / HBM_BYTES_PER_S * 1e3,
+        lanes=lanes, density=compact.SWEEP_DENSITY, planes=1)
+    return g_rows, c_rows, counts, p1, p2
+
+
+def gather_rate(g_rows, nbytes: int):
+    """(gathers/s, size tier): the best rate P1 measured for int32
+    entries, at any interleaving, over the swept tables no larger than
+    ``nbytes``; the tier is the largest of those tables' sizes.  A table
+    under the smallest swept size (tier 0) reads at the best rate of
+    all.  No table of ``nbytes`` random int32 entries was read faster in
+    this run, so gathers over this rate bound the time from below."""
+    rows = [r for r in g_rows if r["arm"] == "i32"]
+    fit = [r for r in rows if r["table_bytes"] <= nbytes]
+    rate = max(r["gathers_per_s"] for r in fit or rows)
+    return rate, max((r["table_bytes"] for r in fit), default=0)
+
+
+def bank_bytes(nb: int) -> int:
+    """Bytes of ``nb`` banks of 128 int32 entries."""
+    return int(nb) * 128 * 4
+
+
+def plan_step_probes(staged, t, seg):
+    """Dependent gathers of the plan walk over one staged window, from
+    this run's data: [prologue, step 0, step 1, ...], each a list of
+    (gathers, bytes of the table they read).  The prologue reads p0 once
+    per position; a step reads its main table, and a pair step its side
+    table too, once per walker that is live at it (a side table packs 4
+    or 8 entries a word, so its gathers are counted against all of it,
+    hot words or not)."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    flat = staged.reshape(-1)
+    n_pos = flat.shape[0] - TILE
+    room = K1.segment_room(n_pos, seg, HALO, flat.device) if seg else None
+    out, disp = K1._prologue_plain(flat, n_pos, t, room)
+    # the part of p0 the prologue's index can reach, where that is less
+    # than the table ("s0": one entry per code, whatever p0's length)
+    reach = {"dense": 2 * t.cb, "s0x": 2 * t.cb - 6, "s0": t.cb}[t.p0_mode]
+    items = [[(n_pos, min(bank_bytes(t.p0.shape[0]), 4 << reach))]]
+    for sp in t.spec:
+        live = disp != t.p0_miss
+        if room is not None:
+            live = live & (room > sp.depth0 - 1)
+        n_live = int(live.sum())
+        step = [(n_live, bank_bytes(sp.nb))]
+        if sp.kind == "pair":
+            step.append((n_live, bank_bytes(sp.s_nb)))
+        items.append(step)
+        disp, out = K1.plan_steps_plain(
+            [sp], t, lambda o: flat[o:o + n_pos], room, disp, out)
+    return items
+
+
+def depth_step_probes(staged, t, input_size, seg):
+    """Walkers that probe at each step of the stride-1 depth walk:
+    [every position (s0), step 1, step 2, ...]; entry s >= 1 is the
+    number of walkers live after s characters (and inside the cut)."""
+    from phfpfac_tpu_torch.compile.depth import DISP_MISS
+    from phfpfac_tpu_torch.ops.plan import probe_banks
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    flat = staged.reshape(-1)
+    n_pos = flat.shape[0] - TILE
+    lim = None
+    if seg:
+        pos = torch.arange(n_pos, dtype=torch.int64, device=flat.device)
+        lim = torch.clamp((pos // seg + 1) * seg + HALO,
+                          max=input_size) - pos
+    cur = flat[:n_pos].to(torch.int64)
+    v = probe_banks(t.s0, cur, 0, t.s0.shape[0], 0)
+    disp = torch.where(v >= 0, v >> 1, DISP_MISS)
+    counts = [n_pos]
+    for s, (off, nb, k0) in enumerate(t.steps.cpu().tolist(), 1):
+        if lim is not None:
+            disp = torch.where(s < lim, disp, DISP_MISS)
+        counts.append(int((disp != DISP_MISS).sum()))
+        cur = flat[s:s + n_pos].to(torch.int64)
+        g = probe_banks(t.packed, disp + cur, off, nb, k0)
+        hit = (g >= 0) & ((g & 255) == cur)
+        disp = torch.where(hit, g >> 9, DISP_MISS)
+    return counts
+
+
+def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
+    """Per kernel, per 16 MiB chunk (4 shards): its dependent gathers on
+    this run's data, table by table (the prologue's table and each
+    step's, at their own sizes), and the least time P1's measured rates
+    leave for them (``gather_rate`` per table)."""
+    from phfpfac_tpu_torch.ops import depth as K2
+
+    def bound(items):
+        # items: (gathers, bytes of the table they read)
+        by_size, ms = {}, 0.0
+        for g, tb in items:
+            rate, tier = gather_rate(g_rows, tb)
+            ms += g / rate * 1e3
+            by_size[tier] = by_size.get(tier, 0) + g
+        return dict(gathers=sum(g for g, _ in items), gather_bound_ms=ms,
+                    gathers_by_table_tier_bytes=dict(sorted(
+                        by_size.items())))
+
+    def flat(steps):
+        return [it for step in steps for it in step]
+
+    out = {}
+    for name, d in dicts.items():
+        k1, ka, kb = [], [], []
+        for rec, sh in zip(d["recs"], ct[name]["shards"]):
+            steps = plan_step_probes(rec["staged"], rec["scanner"].tables,
+                                     SEG)
+            cut = sh["cut"] + 1
+            k1 += flat(steps)
+            ka += flat(steps[:cut])
+            kb += flat(steps[cut:])
+        out[f"plan_scan/{name}"] = bound(k1)
+        out[f"plan_scan_compact_a/{name}"] = bound(ka)
+        out[f"planb_scan/{name}"] = bound(kb)
+    # K2, and from its per-step live walkers K4 and K5: the banked-PHF
+    # walk reads s0, then per live walker and step the row's displacement
+    # (r) and the slot that points at (packed); K5 makes K4's gathers in
+    # one launch, each in its own shard's slice of the tables
+    k2, k4 = [], []
+    for rec, single in zip(dicts["clamav5k"]["depth_recs"], phf_singles):
+        t = rec["scanner"].tables
+        c = depth_step_probes(rec["staged"], t, rec["n"], SEG)
+        k2.append((c[0], bank_bytes(t.s0.shape[0])))
+        k2 += [(g, bank_bytes(nb))
+               for g, (_off, nb, _k0) in zip(c[1:], t.steps.cpu().tolist())]
+        (_so, nb_s0, _ro, nb_r, _po, nb_p, *_rest), = single.tables.spec_rows
+        walked = sum(c[1:])
+        k4 += [(c[0], bank_bytes(nb_s0)), (walked, bank_bytes(nb_r)),
+               (walked, bank_bytes(nb_p))]
+    out["depth_scan/clamav5k"] = bound(k2)
+    out["phf_scan/clamav5k"] = bound(k4)
+    out["phf_scan_multi/clamav5k"] = bound(k4)
+    # K3 (exact mode): the dense prologue, then per pair step k the main
+    # and the side table for every walker live after 2k characters
+    k3 = []
+    for sc in lower["pair_scanners"]:
+        ds = K2.DepthShardScanner(sc.shard, device=device)
+        staged, n = scan_inputs(ds, lower["corpus"], device)
+        c = depth_step_probes(staged, ds.tables, n, 0)
+        k3.append((c[0], bank_bytes(sc.tables.p0.shape[0])))
+        for k, row in enumerate(sc.tables.step_rows, 1):
+            live = c[2 * k] if 2 * k < len(c) else 0
+            _po, p_nb, _pk0, _so, s_nb, _sk0, _nib = row
+            k3 += [(live, bank_bytes(p_nb)), (live, bank_bytes(s_nb))]
+        del staged
+    out["pair_scan/lower50k"] = bound(k3)
+    return out
+
+
+# ---- the mesh, the two-rank run, --profile, the dry run ----------------------
+
+def cell_devices(n: int = 4) -> list[str]:
+    """``n`` mesh cells, all on the one card."""
+    return [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * n
+
+
+def mesh_phase(dicts, device, reset_launches, read_launches):
+    """The device mesh at full width, four cells on the one card:
+    clamav5k's whole corpus under the CLI's segment cut through
+    ``MultiHostMatcher.match`` and ``PlanMeshMatcher`` on (4,1), (2,2)
+    and (1,4), uncompacted, compacted at an explicit (cut, cap) and with
+    one forced overflow; ascii50k's through the turbo mesh; clamav5k's first window
+    through the depth mesh in exact mode.  Every output equal to the
+    single-device one."""
+    from phfpfac_tpu_torch.ops import depth as K2
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.parallel.distributed import MultiHostMatcher
+    from phfpfac_tpu_torch.parallel.matcher import Matcher
+    from phfpfac_tpu_torch.parallel.mesh import make_mesh
+    from phfpfac_tpu_torch.parallel.mesh_pallas import (
+        PallasMeshMatcher,
+        PlanMeshMatcher,
+    )
+    from phfpfac_tpu_torch.utils.config import PfacConfig
+
+    cells = cell_devices()
+    clam, asc = dicts["clamav5k"], dicts["ascii50k"]
+    corpus, n = clam["corpus"], len(clam["corpus"])
+    n_shards = len(clam["compiled"].shards)
+    rows = []
+
+    def timed_match(matcher, data, size):
+        """(first seconds, second seconds, result)."""
+        res, secs = [], []
+        for _ in range(2):
+            secs.append(host_seconds(
+                lambda: res.append(matcher.match(data, input_size=size))))
+        check(np.array_equal(res[0], res[1]), "a mesh scan is not repeatable")
+        return secs[0], secs[1], res[0]
+
+    # the serving wrapper: plan mesh first
+    reset_launches()
+    mh = MultiHostMatcher(clam["compiled"], clam["cfg"], devices=cells)
+    first, again, got = timed_match(mh, corpus, n)
+    check(mh.last_engine == "plan", f"MultiHostMatcher rode {mh.last_engine}")
+    check(np.array_equal(got, clam["got"]),
+          "MultiHostMatcher != the CLI's main-path output")
+    shape = (mh._plan.mesh.shape["data"], mh._plan.mesh.shape["patterns"])
+    counts = read_launches()
+    check(counts["plan_scan"] == 2 * shape[0] * n_shards,
+          f"MultiHostMatcher: {counts['plan_scan']} K1 launches on {shape}")
+    rows.append(dict(matcher="MultiHostMatcher", dictionary="clamav5k",
+                     mesh=shape, engine=mh.last_engine,
+                     stacked=mh._plan.stacked is not None,
+                     seconds_first=first, seconds=again,
+                     launches_per_scan=counts["plan_scan"] // 2))
+    mesh_launches = dict(counts)
+
+    # the plan mesh on every shape, uncompacted and compacted
+    for shape in ((4, 1), (2, 2), (1, 4)):
+        t0 = time.perf_counter()
+        pm = PlanMeshMatcher(clam["compiled"], clam["cfg"],
+                             make_mesh(*shape, cells), train=corpus[:MIB])
+        build = time.perf_counter() - t0
+        # "auto" (opt-in: declines, K1 alone), then an explicit (cut, cap)
+        # with room for every cell's survivors: K1' + K6 per cell
+        for compact in ("auto", (1, 1 << 22)):
+            pm.compact = compact
+            reset_launches()
+            rescans0 = K1.overflow_rescans
+            first, again, got = timed_match(pm, corpus, n)
+            check(np.array_equal(got, clam["got"]),
+                  f"plan mesh {shape} compact={compact} != the CLI's output")
+            counts = read_launches()
+            per_scan = shape[0] * n_shards
+            if compact == "auto":  # opt-in: the default route is K1
+                check(counts["plan_scan"] == 2 * per_scan
+                      and counts["plan_scan_compact_a"] == 0,
+                      f"plan mesh {shape}: launches {counts}")
+            else:
+                check(counts["plan_scan_compact_a"] == counts["planb_scan"]
+                      == 2 * per_scan and counts["plan_scan"] == 0
+                      and K1.overflow_rescans == rescans0,
+                      f"compacted plan mesh {shape}: launches {counts}")
+            for k, v in counts.items():
+                mesh_launches[k] = mesh_launches.get(k, 0) + v
+            rows.append(dict(
+                matcher="PlanMeshMatcher", dictionary="clamav5k", mesh=shape,
+                compact=compact, stacked=pm.stacked is not None,
+                table_build_seconds=build, seconds_first=first,
+                seconds=again, launches_per_scan=per_scan,
+                overflow_rescans=K1.overflow_rescans - rescans0))
+
+    # one forced overflow: a cap of one block on every cell
+    pm = PlanMeshMatcher(clam["compiled"], clam["cfg"],
+                         make_mesh(4, 1, cells), train=corpus[:MIB],
+                         compact=(1, K1.COMPACT_BLOCK))
+    reset_launches()
+    rescans0 = K1.overflow_rescans
+    got = pm.match(corpus, input_size=n)
+    counts = read_launches()
+    check(K1.overflow_rescans - rescans0 == n_shards,
+          "the forced mesh overflow did not rescan every shard")
+    check(counts["plan_scan"] == counts["plan_scan_compact_a"]
+          == 4 * n_shards, f"forced mesh overflow: launches {counts}")
+    check(np.array_equal(got, clam["got"]),
+          "the mesh's overflow rescan != the CLI's output")
+    forced = dict(mesh=(4, 1), cap=K1.COMPACT_BLOCK,
+                  rescans=K1.overflow_rescans - rescans0, equal=True)
+
+    # ascii50k: its 40-64 B patterns make the plan tables refuse it
+    reset_launches()
+    mh = MultiHostMatcher(asc["compiled"], asc["cfg"], devices=cells)
+    first, again, got = timed_match(mh, asc["corpus"], len(asc["corpus"]))
+    check(mh.last_engine == "turbo" and mh._plan is None
+          and mh._plan_refused,
+          f"ascii50k rode {mh.last_engine}: the plan tables should refuse")
+    check(not any(read_launches().values()),
+          "the turbo mesh launched a kernel")
+    check(np.array_equal(got, asc["got"]),
+          "the turbo mesh != the CLI's main-path output")
+    rows.append(dict(matcher="MultiHostMatcher", dictionary="ascii50k",
+                     mesh=(mh.mesh.shape["data"], mh.mesh.shape["patterns"]),
+                     engine="turbo", seconds_first=first, seconds=again))
+
+    # the depth kernel per cell: exact mode, the first window
+    window = corpus[:CHUNK]
+    exact = PfacConfig(width=4096, num_shards=4, truncation="none")
+    pm = PallasMeshMatcher(clam["compiled"], exact, make_mesh(1, 4, cells))
+    reset_launches()
+    first, again, got = timed_match(pm, window, len(window))
+    check(K2.launches == 2 * n_shards,
+          f"depth mesh: {K2.launches} K2 launches")
+    mesh_launches["depth_scan"] = mesh_launches.get("depth_scan", 0) \
+        + K2.launches
+    want = Matcher(clam["compiled"], exact, device=device,
+                   train=window[:MIB]).match(window)
+    check(np.array_equal(got, want),
+          "the depth mesh != the single-device matcher in exact mode")
+    rows.append(dict(matcher="PallasMeshMatcher", dictionary="clamav5k",
+                     mesh=(1, 4), truncation="none",
+                     corpus_bytes=len(window), seconds_first=first,
+                     seconds=again, matches=len(got)))
+    return dict(cells=cells, corpus_bytes=n, rows=rows,
+                forced_overflow=forced,
+                single_device_match_seconds={
+                    k: d["match_seconds"] for k, d in dicts.items()},
+                identical_to_cli_output=True), mesh_launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distributed_phase(d, tmp):
+    """Two cooperating processes of the port's CLI over gloo, both on
+    the one card, each scanning its half of the input file; rank 0's
+    file against the single-process one.  A rank that dies or runs past
+    its limit fails the run."""
+    pat_file, in_file = d["files"]
+    outs = [os.path.join(tmp, f"rank{r}.out") for r in range(2)]
+    port = free_port()
+    common = [sys.executable, "-m", "phfpfac_tpu_torch.cli", pat_file, "1",
+              "4096", in_file, "--quiet", *d["flags"], "--device", DEVICE,
+              "--coordinator", f"localhost:{port}", "--num-processes", "2"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [*common, "--process-id", str(r), "-o", outs[r]], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=300)[0])
+    except subprocess.TimeoutExpired:
+        logs.append("timed out")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        check(p.returncode == 0 and len(logs) == 2,
+              f"rank {r} failed ({p.returncode}):\n{logs[-1][-2000:]}")
+    check(os.path.exists(outs[0]) and not os.path.exists(outs[1]),
+          "rank 0 alone writes the result file")
+    with open(outs[0], "rb") as f, open(d["out"], "rb") as g:
+        check(f.read() == g.read(),
+              "the two-rank output != the single-process CLI's")
+    return dict(ranks=2, backend="gloo", corpus_bytes=len(d["corpus"]),
+                seconds=secs, single_process_cli_seconds=d["cli_seconds"],
+                byte_identical=True)
+
+
+def profile_phase(d, tmp):
+    """The CLI with ``--profile``: the trace exists, names the plan
+    kernel, and the output file is unchanged."""
+    pat_file, in_file = d["files"]
+    out = os.path.join(tmp, "profiled.out")
+    prof = os.path.join(tmp, "profile")
+    secs = run_cli([pat_file, 1, 4096, in_file, "-o", out, "--quiet",
+                    *d["flags"], "--profile", prof])
+    traces = [f for f in os.listdir(prof) if f.endswith(".trace.json")]
+    check(len(traces) == 1, f"--profile wrote {traces}")
+    path = os.path.join(prof, traces[0])
+    with open(path, "rb") as f:
+        text = f.read()
+    check(DEVICE != "cuda" or b"plan_scan" in text,
+          "the trace does not name the plan kernel")
+    with open(out, "rb") as f, open(d["out"], "rb") as g:
+        check(f.read() == g.read(), "--profile changed the output")
+    return dict(cli_seconds=secs, unprofiled_cli_seconds=d["cli_seconds"],
+                trace_bytes=len(text), names_plan_scan=b"plan_scan" in text,
+                output_unchanged=True)
+
+
 def host_seconds(fn) -> float:
     """Host-clock seconds of ``fn`` up to the end of its device work."""
     torch.cuda.synchronize()
@@ -1106,7 +1566,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from phfpfac_tpu_torch import _build, compile_dictionary
     from phfpfac_tpu_torch.frontend.patterns import Pattern
     from phfpfac_tpu_torch.compile.pair import PairUnsupported
@@ -1513,6 +1972,29 @@ def main() -> int:
         emit("charset", **charset_phase(
             np.random.default_rng(args.seed + 2), tmp, device))
 
+        # ---- 4g. the probe kernels: parity, then their sweeps ----
+        emit("probe_parity", **probe_parity(device))
+        g_rows, c_rows, probe_launches, p1, p2 = probes_phase(device)
+        launches["probes"] = probe_launches
+        emit("probes", gather=g_rows, compact=c_rows,
+             launches=probe_launches,
+             kernels_line=dict(probe_gather=p1, probe_compact=p2))
+
+        # ---- 4h. the mesh, two ranks, --profile, the dry run ----
+        r, launches["mesh"] = mesh_phase(dicts, device, reset_launches,
+                                         read_launches)
+        emit("mesh", **r, launches=launches["mesh"])
+        _build.build_all()  # the ranks find every kernel built
+        emit("distributed", dictionary="clamav5k",
+             **distributed_phase(clam, tmp))
+        emit("profile", dictionary="clamav5k", **profile_phase(clam, tmp))
+        from phfpfac_tpu_torch.dryrun import dryrun_multichip
+
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(4, devices=cell_devices())
+        emit("dryrun", cells=cell_devices(),
+             seconds=time.perf_counter() - t0, **dry)
+
     # ---- 5. times ----
     ct = {name: compact_times(name, d) for name, d in dicts.items()}
     for name, r in ct.items():
@@ -1537,6 +2019,26 @@ def main() -> int:
         emit("times", kernel="cli", dictionary=name,
              seconds=d["cli_seconds"],
              gb_per_s=len(d["corpus"]) / d["cli_seconds"] / 1e9)
+
+    gb = gather_bounds(g_rows, dicts, lower, ct, phf_singles, device)
+    measured = {"plan_scan/ascii50k": k1["ms"], "plan_scan/clamav5k":
+                k1c["ms"], "depth_scan/clamav5k": k2["ms"],
+                "pair_scan/lower50k": k3["ms"], "phf_scan/clamav5k":
+                k4["ms"], "phf_scan_multi/clamav5k": k5["ms"]}
+    for name, r in ct.items():
+        measured[f"plan_scan_compact_a/{name}"] = r["a_ms"]
+        measured[f"planb_scan/{name}"] = r["b_ms"]
+    for label, r in gb.items():
+        r["ms"] = measured[label]
+    emit("gather_bounds", per="16 MiB chunk, 4 shards",
+         rate="per table (the prologue's and each step's, at its own "
+              "size): the best rate probe_gather measured for int32 over "
+              "the swept tables no larger than it", **gb)
+    for label, r in gb.items():
+        # a bound that a kernel beats is no bound
+        check(r["ms"] >= r["gather_bound_ms"],
+              f"{label}: {r['ms']} ms is under its gather bound "
+              f"{r['gather_bound_ms']} ms")
 
     # ---- 6. kernels ----
     kernels = [
@@ -1604,8 +2106,48 @@ def main() -> int:
              detail={"launches": {k: v for k, v in launches.items()
                                   if k.startswith("compact_path")}}),
     ]
+    kernels += [
+        dict(name="probe_gather", route="cuda",
+             source="phfpfac_tpu_torch/csrc/probe_gather.cu",
+             replaces="bench/lane_probe.py:97",
+             launches=launches["probes"]["probe_gather"],
+             max_abs_err=MAX_ERR["probe_gather"], ms=p1["ms"],
+             plain_ms=p1["plain_ms"], bound_ms=p1["bound_ms"],
+             bound_by="bytes", library_ms=None,
+             library_note="no single PyTorch call computes a chain of "
+                          "dependent gathers",
+             detail=dict(p1, also_replaces=[
+                 "bench/lane_probe.py:133", "bench/ilp_probe.py:65",
+                 "bench/micro_tpu.py:113", "bench/micro_tpu.py:155",
+                 "bench/micro_tpu.py:208", "bench/lane_iso.py:35"])),
+        dict(name="probe_compact", route="cuda",
+             source="phfpfac_tpu_torch/csrc/probe_compact.cu",
+             replaces="bench/pack_probe.py:171",
+             launches=launches["probes"]["probe_compact"],
+             max_abs_err=MAX_ERR["probe_compact"], ms=p2["ms"],
+             plain_ms=p2["plain_ms"], bound_ms=p2["bound_ms"],
+             bound_by="bytes", library_ms=p2["library_ms"],
+             library_note="boolean indexing, disp[disp != 0]: one "
+                          "compaction of the whole input, not per tile",
+             detail=dict(p2, also_replaces=["bench/pack_probe.py:201"],
+                         launches=launches["probes"])),
+    ]
+    on_its_data = {"plan_scan": "plan_scan/ascii50k",
+                   "depth_scan": "depth_scan/clamav5k",
+                   "pair_scan": "pair_scan/lower50k",
+                   "phf_scan": "phf_scan/clamav5k",
+                   "phf_scan_multi": "phf_scan_multi/clamav5k",
+                   "plan_scan_compact_a": "plan_scan_compact_a/ascii50k",
+                   "planb_scan": "planb_scan/ascii50k"}
     for k in kernels:
+        k.update({key: v for key, v in
+                  gb.get(on_its_data.get(k["name"]), {}).items()
+                  if key != "ms"})
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
+    for name in ("plan_scan", "plan_scan_compact_a", "planb_scan",
+                 "depth_scan"):
+        check(launches["mesh"].get(name, 0) > 0,
+              f"{name}: no launch on the mesh path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

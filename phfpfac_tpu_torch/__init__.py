@@ -4,7 +4,10 @@ The PyTorch/CUDA port of ``phfpfac_tpu``: the same host compiler
 (newline-separated dictionary -> per-shard failureless Aho-Corasick
 tables), one walker per input byte offset in hand-written CUDA kernels
 (``csrc/``), and a gphf-compatible CLI writing a byte-identical
-``GPU_match_result.txt`` (``phfpfac_tpu_torch.cli``).
+``GPU_match_result.txt`` (``phfpfac_tpu_torch.cli``).  Scans over
+several devices or processes are in ``parallel.mesh``,
+``parallel.mesh_pallas`` and ``parallel.distributed``; measurement
+probes of the card in ``probes``.
 """
 
 __version__ = "0.1.0"

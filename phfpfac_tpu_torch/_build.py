@@ -24,7 +24,8 @@ FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 ]
-SOURCES = ("plan_scan", "planb_scan", "depth_scan", "pair_scan", "phf_scan")
+SOURCES = ("plan_scan", "planb_scan", "depth_scan", "pair_scan", "phf_scan",
+           "probe_gather", "probe_compact")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

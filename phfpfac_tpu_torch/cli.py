@@ -27,13 +27,23 @@ Notes on fidelity:
   built (format v3); ``--load-tables`` then skips the trie and plan
   builds.  The files are interchangeable with the JAX package's.
 * ``--charset`` reads ``[a-z]`` / ``[^...]`` classes in the patterns.
-* ``--profile``, ``--mesh`` and the multi-host flags are not ported and
-  exit with the ROADMAP.md item that will bring them.
+* ``--mesh`` scans on a (data x patterns) mesh of every visible CUDA
+  device (one cell with ``--device cpu``): the plan-kernel mesh, or the
+  turbo mesh where the plan tables refuse the dictionary.
+  ``--coordinator HOST:PORT --num-processes N --process-id I`` run N
+  cooperating processes (``torch.distributed``, gloo), each reading and
+  scanning its slice of the input file on its own mesh; process 0
+  writes the result file.  Neither re-saves plan tables under
+  ``--save-tables``.
+* ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+  match phase into DIR (CUDA and CPU activities; CPU alone with
+  ``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -47,13 +57,6 @@ from phfpfac_tpu_torch.parallel.matcher import Matcher, resolve_device
 from phfpfac_tpu_torch.parallel.merge import render_result_file
 from phfpfac_tpu_torch.utils.config import PfacConfig
 from phfpfac_tpu_torch.utils.timing import PhaseTimer
-
-# flags of paths the port does not have yet -> the ROADMAP.md item
-_NOT_PORTED = {
-    "profile": "queue 2, 'bench/ probes and tracing'",
-    "mesh": "queue 1, 'Multi-GPU'",
-    "coordinator": "queue 1, 'Multi-GPU'",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -95,28 +98,27 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load compiled tables instead of building")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="trace the match phase (not ported yet)")
-    mh = p.add_argument_group("multi-host (not ported yet)")
+                   help="write a torch.profiler trace of the match phase")
+    mh = p.add_argument_group("multi-process (torch.distributed, gloo)")
     mh.add_argument("--coordinator", default=None,
                     help="coordinator address host:port")
     mh.add_argument("--num-processes", type=int, default=1)
     mh.add_argument("--process-id", type=int, default=0)
     mh.add_argument("--mesh", action="store_true",
-                    help="scan on a device mesh")
+                    help="scan on a (data x patterns) device mesh even "
+                         "single-process (all visible CUDA devices)")
     return p
 
 
 def main(argv: list[str] | None = None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    for flag, item in _NOT_PORTED.items():
-        if getattr(args, flag):
-            parser.error(f"--{flag.replace('_', '-')} is not ported yet "
-                         f"(ROADMAP.md {item})")
-    if args.num_processes > 1:
-        parser.error("--num-processes is not ported yet "
-                     "(ROADMAP.md queue 1, 'Multi-GPU')")
+    args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    on_mesh = args.num_processes > 1 or args.mesh
+    if args.num_processes > 1:
+        from phfpfac_tpu_torch.parallel import distributed
+
+        distributed.initialize(args.coordinator, args.num_processes,
+                               args.process_id)
     num_shards = args.num_shards or 4 * args.streamnum
     cfg = PfacConfig(
         width=args.width,
@@ -157,22 +159,42 @@ def main(argv: list[str] | None = None) -> int:
     if not args.quiet:
         print(f"input size is {input_size} char")  # main.cc:140
 
-    with open(args.input_file, "rb") as f:
-        data = f.read()
-    matcher = Matcher(compiled, cfg, engine=args.engine, device=device,
-                      timer=timer)
-    # big inputs scan in pipelined chunks (match_chunked falls through
-    # to one-shot when small)
-    text = render_result_file(
-        matcher.match_chunked(data, input_size=input_size)
-    )
-    if args.save_tables and args.engine == "pallas":
-        plan = matcher.built_plan_tables()
-        if any(p is not None for p in plan):
-            compiled.plan_tables = plan
-            compiled.save(args.save_tables)
-    with open(args.output, "w") as f:
-        f.write(text)
+    prof = contextlib.nullcontext()
+    if args.profile:
+        from phfpfac_tpu_torch.utils.profile import trace
+
+        prof = trace(args.profile, device=device)
+
+    if on_mesh:
+        from phfpfac_tpu_torch.parallel.distributed import MultiHostMatcher
+
+        mh = MultiHostMatcher(compiled, cfg, device=device)
+        with prof, timer.phase("match"):
+            matches = mh.match_file(args.input_file, input_size=input_size)
+        text = render_result_file(matches)
+        write_out = args.process_id == 0
+        if args.num_processes > 1:
+            distributed.finalize()
+    else:
+        with open(args.input_file, "rb") as f:
+            data = f.read()
+        matcher = Matcher(compiled, cfg, engine=args.engine, device=device,
+                          timer=timer)
+        with prof:
+            # big inputs scan in pipelined chunks (match_chunked falls
+            # through to one-shot when small)
+            text = render_result_file(
+                matcher.match_chunked(data, input_size=input_size)
+            )
+        if args.save_tables and args.engine == "pallas":
+            plan = matcher.built_plan_tables()
+            if any(p is not None for p in plan):
+                compiled.plan_tables = plan
+                compiled.save(args.save_tables)
+        write_out = True
+    if write_out:
+        with open(args.output, "w") as f:
+            f.write(text)
 
     if not args.quiet:
         print(timer.report())

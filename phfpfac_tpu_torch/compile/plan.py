@@ -656,6 +656,13 @@ def build_plan_tables(
             )
 
     main_tables, side_tables = [], []
+    # An empty forced step appends its all-miss table and then, below,
+    # the previous step's table once more (nothing walks into a table
+    # behind an empty step).  Where the FIRST step is empty there is no
+    # previous table: the JAX package's compiler fails there on an
+    # unbound name, and this one refuses the shard to the next engine.
+    if built and built[0].get("empty"):
+        raise PairUnsupported("the first forced step is empty for this shard")
     for i, b in enumerate(built):
         kind, d, vshift = b["kind"], b["d"], b["vshift"]
         li = d - 1

@@ -12,9 +12,16 @@ import numpy as np
 
 from phfpfac_tpu_torch.compile.depth import DepthTables
 from phfpfac_tpu_torch.compile.pair import PairTables
-from phfpfac_tpu_torch.compile.plan import PlanTables, plan_tables_from
+from phfpfac_tpu_torch.compile.plan import (
+    PlanTables,
+    StackedPlanTables,
+    StepSpec,
+    plan_tables_from,
+)
 from phfpfac_tpu_torch.compile.tables import CompiledDictionary
 from phfpfac_tpu_torch.ops.turbo import TurboTables
+from phfpfac_tpu_torch.parallel.mesh import StackedTables
+from phfpfac_tpu_torch.parallel.mesh_pallas import StackedDepthTables
 
 
 def plan_tables_from_arrays(arrays: dict, meta: dict) -> PlanTables:
@@ -79,6 +86,53 @@ def turbo_tables_from_arrays(
         s0=arr(s0), r=arr(r), packed=arr(packed), ht=arr(ht), val=arr(val),
         width_bit=int(width_bit), row_bits=int(row_bits), dead=int(dead),
         num_final=int(num_final), max_pat_len=int(max_pat_len),
+    )
+
+
+def stacked_tables_from_arrays(
+    *, s0, r, tbl_a, tbl_b, width_bit, row_bits, dead, num_final,
+    is_packed: bool, max_pat_len: int,
+) -> StackedTables:
+    """StackedTables (the turbo mesh's) from the fields of the JAX
+    package's ``parallel.mesh.StackedTables``."""
+    def arr(a):
+        return np.asarray(a, np.int32)
+
+    return StackedTables(
+        s0=arr(s0), r=arr(r), tbl_a=arr(tbl_a), tbl_b=arr(tbl_b),
+        width_bit=arr(width_bit), row_bits=arr(row_bits), dead=arr(dead),
+        num_final=arr(num_final), is_packed=bool(is_packed),
+        max_pat_len=int(max_pat_len),
+    )
+
+
+def stacked_depth_tables_from_arrays(
+    *, s0, packed, offs, nbs, n_steps: int,
+) -> StackedDepthTables:
+    """StackedDepthTables from the fields of the JAX package's
+    ``parallel.mesh_pallas.StackedDepthTables``."""
+    return StackedDepthTables(
+        s0=np.asarray(s0, np.int32), packed=np.asarray(packed, np.int32),
+        offs=_ints(offs), nbs=_ints(nbs), n_steps=int(n_steps),
+    )
+
+
+def stacked_plan_tables_from_arrays(
+    *, code_of, code_bits: int, p0_mode: str, p0_banks, packed_banks,
+    side_banks, steps, p0_miss: int, max_pat_len: int, trained: bool,
+    live_frac=(),
+) -> StackedPlanTables:
+    """StackedPlanTables from the fields of the JAX package's
+    ``compile.plan.StackedPlanTables``; ``steps`` as dicts of its
+    StepSpec fields (``vars(step)``)."""
+    return StackedPlanTables(
+        code_of=np.asarray(code_of, np.int32), code_bits=int(code_bits),
+        p0_mode=str(p0_mode), p0_banks=np.asarray(p0_banks, np.int32),
+        packed_banks=np.asarray(packed_banks, np.int32),
+        side_banks=np.asarray(side_banks, np.int32),
+        steps=tuple(StepSpec(**dict(s)) for s in steps),
+        p0_miss=int(p0_miss), max_pat_len=int(max_pat_len),
+        trained=bool(trained), live_frac=tuple(float(f) for f in live_frac),
     )
 
 

@@ -52,22 +52,108 @@ def test_cli_phase_report(tmp_path, capsys):
     assert "The throughput is" in text
 
 
-@pytest.mark.parametrize("flags", [["--save-tables", "x.npz", "--mesh"],
-                                   ["--charset", "--profile", "dir"],
-                                   ["--mesh"],
-                                   ["--load-tables", "x.npz",
-                                    "--coordinator", "h:1"],
-                                   ["--profile", "dir"],
-                                   ["--coordinator", "h:1"],
-                                   ["--num-processes", "2"]])
-def test_unported_flags_exit_naming_the_roadmap(tmp_path, capsys, flags):
+@pytest.mark.parametrize("flags", [[], ["--exact"], ["--escapes"],
+                                   ["--full-input"],
+                                   ["--exact", "--num-shards", "3"]])
+def test_mesh_output_matches_plain_run_and_jax_mesh(tmp_path, flags):
+    """--mesh: byte-identical to the run without it and to the JAX CLI's
+    --mesh (which scans on its 8 host devices)."""
     pat, inp = _files(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        main([str(pat), "1", "256", str(inp), "--device", "cpu",
-              *[str(tmp_path / f) if f == "x.npz" else f for f in flags]])
-    assert e.value.code == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (tmp_path / "x.npz").exists()  # refused before any work
+    mesh, plain, theirs = (tmp_path / n for n in ("m.txt", "p.txt", "j.txt"))
+    common = [str(pat), "1", "256", str(inp), "--quiet", *flags]
+    assert main([*common, "-o", str(mesh), "--device", "cpu", "--mesh"]) == 0
+    assert main([*common, "-o", str(plain), "--device", "cpu"]) == 0
+    assert jax_main([*common, "-o", str(theirs), "--mesh"]) == 0
+    assert mesh.read_bytes() == plain.read_bytes() == theirs.read_bytes()
+    assert mesh.read_bytes().count(b"\n") > 100
+
+
+def test_mesh_takes_the_turbo_mesh_where_the_plan_tables_refuse(tmp_path):
+    """A pattern past the 32-step bitmap: the plan mesh's table build refuses,
+    the turbo mesh answers, the file stays the plain run's."""
+    pat, inp = _files(tmp_path)
+    long = b"abcdefg x4" * 4
+    pat.write_bytes(pat.read_bytes() + long + b"\n")
+    inp.write_bytes(long + inp.read_bytes())
+    mesh, plain = tmp_path / "m.txt", tmp_path / "p.txt"
+    common = [str(pat), "1", "256", str(inp), "--quiet", "--device", "cpu"]
+    assert main([*common, "-o", str(mesh), "--mesh"]) == 0
+    assert main([*common, "-o", str(plain)]) == 0
+    assert mesh.read_bytes() == plain.read_bytes()
+    assert b"At position    0, match pattern" in mesh.read_bytes()
+
+
+def test_mesh_saves_tables_once_without_plan_tables(tmp_path, monkeypatch):
+    from phfpfac_tpu_torch.compile.tables import CompiledDictionary
+
+    saves = []
+    real = CompiledDictionary.save
+    monkeypatch.setattr(
+        CompiledDictionary, "save",
+        lambda self, path: saves.append(path) or real(self, path))
+    pat, inp = _files(tmp_path)
+    npz, out, again = (tmp_path / n for n in ("t.npz", "o.txt", "l.txt"))
+    common = ["1", "256", str(inp), "--quiet", "--device", "cpu", "--mesh"]
+    assert main([str(pat), *common, "-o", str(out),
+                 "--save-tables", str(npz)]) == 0
+    assert saves == [str(npz)]  # no re-save with plan tables on this path
+    assert CompiledDictionary.load(str(npz)).plan_tables is None
+    assert main(["no-such-file", *common, "-o", str(again),
+                 "--load-tables", str(npz)]) == 0
+    assert again.read_bytes() == out.read_bytes()
+
+
+@pytest.mark.parametrize("flags", [[], ["--mesh"]])
+def test_profile_writes_a_trace_and_leaves_the_output(tmp_path, flags):
+    import json
+
+    pat, inp = _files(tmp_path)
+    traced, plain = tmp_path / "t.txt", tmp_path / "p.txt"
+    prof = tmp_path / "prof"
+    common = [str(pat), "1", "256", str(inp), "--quiet", "--device", "cpu",
+              *flags]
+    assert main([*common, "-o", str(traced), "--profile", str(prof)]) == 0
+    assert main([*common, "-o", str(plain)]) == 0
+    assert traced.read_bytes() == plain.read_bytes()
+    (trace,) = list(prof.glob("*.trace.json"))
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert any("aten::" in str(e.get("name")) for e in events)
+
+
+def test_two_process_cli_writes_one_file_from_rank_0(tmp_path):
+    """Two cooperating CLI processes over gloo: each scans its half of
+    the input file; rank 0 alone writes the result, and it is the
+    one-process file."""
+    import sys
+
+    from test_torch_distributed import free_port, run_ranks
+
+    pat, inp = _files(tmp_path)
+    # 8192 scanned bytes: each rank's half starts on a segment boundary
+    inp.write_bytes(inp.read_bytes()[:8192] + b"\n")
+    port = free_port()
+    outs = [tmp_path / f"rank{r}.txt" for r in range(2)]
+    common = [sys.executable, "-m", "phfpfac_tpu_torch.cli", str(pat), "1",
+              "256", str(inp), "--quiet", "--device", "cpu",
+              "--coordinator", f"localhost:{port}", "--num-processes", "2"]
+    run_ranks([[*common, "--process-id", str(r), "-o", str(outs[r])]
+               for r in range(2)])
+    assert outs[0].exists() and not outs[1].exists()
+    one = tmp_path / "one.txt"
+    assert main([str(pat), "1", "256", str(inp), "--quiet", "--device",
+                 "cpu", "-o", str(one)]) == 0
+    assert outs[0].read_bytes() == one.read_bytes()
+    assert one.read_bytes().count(b"\n") > 100
+
+
+def test_help_names_no_unported_flag(capsys):
+    with pytest.raises(SystemExit):
+        main(["--help"])
+    text = capsys.readouterr().out
+    assert "not ported" not in text and "ROADMAP" not in text
+    for flag in ("--mesh", "--coordinator", "--num-processes",
+                 "--process-id", "--profile"):
+        assert flag in text
 
 
 def test_exact_reaches_the_pair_scanner(tmp_path, monkeypatch):

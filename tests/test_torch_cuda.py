@@ -433,3 +433,120 @@ def test_matcher_compacts_on_cuda_with_the_opt_in(dev, monkeypatch):
     assert staged.device.type == "cuda"
     got = m.match_chunked(data, chunk_bytes=8192, device_data=staged)
     assert [tuple(x) for x in got] == want
+
+
+# ---- the probes: P1 (probe_gather) and P2 (probe_compact, probe_copy) ------
+
+@pytest.mark.parametrize("arm", ["i32", "i16", "i8", "packed", "alu"])
+def test_gather_probe_equals_plain(arm, dev):
+    from phfpfac_tpu_torch.probes import gather
+
+    rng = np.random.default_rng(1)
+    host = gather.make_table(rng, arm, 1 << 16)
+    table = None if host is None else torch.from_numpy(host).to(dev)
+    idx = torch.from_numpy(
+        rng.integers(-(1 << 31), 1 << 31, 1 << 15).astype(np.int32)).to(dev)
+    for k in gather.KS:
+        for mul in (1, gather.SCATTER):
+            before = gather.launches
+            got = gather.probe_gather(table, idx, arm=arm, reps=7, k=k,
+                                      mul=mul)
+            assert gather.launches == before + 1
+            want = gather.probe_gather_plain(table, idx, arm=arm, reps=7,
+                                             k=k, mul=mul)
+            assert torch.equal(got, want), (arm, k, mul)
+    with pytest.raises(ValueError):
+        gather.probe_gather(table, idx[:-1], arm=arm, reps=1, k=2)
+
+
+@pytest.mark.parametrize("m", [1, 2, 6, 8])
+def test_compact_probe_equals_plain(m, dev):
+    from phfpfac_tpu_torch.probes import compact
+
+    rng = np.random.default_rng(m)
+    for density in (0.0, 0.04, 0.7, 1.0):
+        disp = torch.from_numpy(
+            compact.make_disp(rng, 64 * compact.TILE, density)).to(dev)
+        before = compact.launches, compact.launches_copy
+        for fn, plain in ((compact.probe_compact,
+                           compact.probe_compact_plain),
+                          (compact.probe_copy, compact.probe_copy_plain)):
+            got, want = fn(disp, m), plain(disp, m)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), (fn.__name__, density)
+        assert (compact.launches, compact.launches_copy) == (
+            before[0] + 1, before[1] + 1)
+        out, count = compact.probe_compact_atomic(disp, m)
+        want, wcount = compact.probe_compact_atomic_plain(disp, m)
+        n = int(count)
+        assert n == int(wcount)
+        # tiles arrive in any order: the same values, as a multiset
+        assert torch.equal(torch.sort(out[:n]).values,
+                           torch.sort(want[:n]).values)
+
+
+def test_probe_sweeps_hold_every_timed_shape_to_its_plain_version(dev):
+    from phfpfac_tpu_torch.probes import compact, gather
+
+    seen = []
+
+    def check(got, want, what):
+        gather.expect_equal(got, want, what)
+        seen.append(what)
+
+    kw = dict(walkers=1 << 16, table_bytes=(4096, 1 << 20), ks=(1, 8),
+              timed=1)
+    rows = list(gather.sweep(dev, check=check, **kw))
+    assert len(rows) == len(seen) == 4 * 2 * 2 + 2
+    # the check sees the kernel's own output: a wrong one ends the sweep
+    with pytest.raises(RuntimeError, match="kernel != plain"):
+        next(gather.sweep(dev, arms=("i32",), **dict(
+            kw, check=lambda got, want, what: gather.expect_equal(
+                got + 1, want, what))))
+    seen.clear()
+    rows = list(compact.sweep(
+        dev, lanes=64 * compact.TILE, timed=1,
+        check=lambda got, want, what: (
+            compact.expect_equal(got, want, what), seen.append(what))))
+    assert len(rows) == len(compact.SWEEP_PLANES)
+    assert len(seen) == 3 * len(rows)
+
+
+# ---- the mesh on one card: every cell on cuda:0 -----------------------------
+
+@pytest.mark.parametrize("trunc", ["segment", "none"])
+def test_mesh_of_four_cells_on_one_card_equals_matcher(trunc, dev):
+    from phfpfac_tpu_torch.parallel.distributed import MultiHostMatcher
+    from phfpfac_tpu_torch.parallel.mesh import DistributedMatcher, make_mesh
+    from phfpfac_tpu_torch.parallel.mesh_pallas import (
+        PallasMeshMatcher,
+        PlanMeshMatcher,
+    )
+
+    words, data = _dictionary("dense")
+    cfg = PfacConfig(width=256, num_shards=2, truncation=trunc,
+                     segment_bytes=2048, halo_bytes=16)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    comp = compile_patterns(pats, cfg)
+    want = Matcher(comp, cfg).match(data)
+    assert [tuple(x) for x in want] == match_oracle(pats, data, cfg)
+    cells = ["cuda:0"] * 4
+    mesh = make_mesh(2, 2, cells)
+    K1.launches = K1.launches_compact_a = K1.launches_compact_b = 0
+    pm = PlanMeshMatcher(comp, cfg, mesh, train=data[:8192])
+    assert pm.stacked is not None
+    assert np.array_equal(pm.match(data), want)
+    assert K1.launches == 4  # one launch per cell
+    packed = PlanMeshMatcher(comp, cfg, mesh, train=data[:8192],
+                             compact=(1, 8192))
+    assert np.array_equal(packed.match(data), want)
+    assert K1.launches_compact_a == K1.launches_compact_b == 4
+    assert np.array_equal(DistributedMatcher(comp, cfg, mesh).match(data),
+                          want)
+    mh = MultiHostMatcher(comp, cfg, devices=cells)
+    assert np.array_equal(mh.match(data), want) and mh.last_engine == "plan"
+    if trunc == "none":
+        K2.launches = 0
+        assert np.array_equal(PallasMeshMatcher(comp, cfg, mesh).match(data),
+                              want)
+        assert K2.launches == 4

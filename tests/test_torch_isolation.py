@@ -62,6 +62,25 @@ plan.plan_scan_compact = lambda *a, **k: calls.append(1) or real(*a, **k)
 assert int(sc(big, len(data) * 8, 0)) == int(off(big, len(data) * 8, 0)) \
     >= 8 * 600
 assert len(calls) == 1 and not sc.check_overflow()
+from phfpfac_tpu_torch.dryrun import dryrun_multichip
+from phfpfac_tpu_torch.parallel.distributed import MultiHostMatcher
+from phfpfac_tpu_torch.parallel.mesh import DistributedMatcher, make_mesh
+from phfpfac_tpu_torch.parallel.mesh_pallas import (
+    PallasMeshMatcher, PlanMeshMatcher)
+from phfpfac_tpu_torch.probes import compact, gather
+from phfpfac_tpu_torch.probes import __main__ as probes_main
+from phfpfac_tpu_torch.utils import profile
+mesh = make_mesh(2, 2, ["cpu"] * 4)
+assert [tuple(x) for x in DistributedMatcher(
+    m.compiled, cfg, mesh).match(data).tolist()] == got
+xcfg = P.PfacConfig(width=256, num_shards=2, truncation="none")
+xc = P.compile_patterns(pats, xcfg)
+for cls in (PallasMeshMatcher, PlanMeshMatcher):
+    assert [tuple(x) for x in cls(xc, xcfg, mesh).match(data).tolist()] == got
+mh = MultiHostMatcher(m.compiled, cfg, devices=["cpu"] * 4)
+assert [tuple(x) for x in mh.match(data).tolist()] == got
+assert mh.last_engine == "plan"
+assert dryrun_multichip(2, ["cpu"] * 2)["multihost_engine"] == "plan"
 loaded = sorted(k for k in sys.modules if k.split(".")[0] in
                 ("jax", "jaxlib", "phfpfac_tpu") and sys.modules[k])
 assert not loaded, loaded
@@ -90,7 +109,9 @@ def test_no_jax_imports_in_port_sources():
     assert len(files) > 25
     names = {f.name for f in files}
     assert {"turbo.py", "reference.py", "scan.py", "pair.py",
-            "engine_select.py", "stream.py", "charset.py"} <= names
+            "engine_select.py", "stream.py", "charset.py", "mesh.py",
+            "mesh_pallas.py", "distributed.py", "dryrun.py", "gather.py",
+            "compact.py", "profile.py"} <= names
     for f in files:
         for mod in _imports(f):
             assert mod.split(".")[0] not in BANNED, f"{f}: imports {mod}"
