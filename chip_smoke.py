@@ -1225,6 +1225,49 @@ def plan_step_probes(staged, t, seg):
     return items
 
 
+def lane_stats(d, device):
+    """Per plan shard, over the whole corpus in 16 MiB windows, from the
+    plain version: how one walker per thread (K1's mapping up to PR 4)
+    keeps a warp's lanes busy.  A warp of 32 positions runs a step while
+    any lane's walker is live before it: ``warp_steps_per_warp``;
+    ``lane_util`` = live lane-steps over 32 x warp steps."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    out = []
+    for si, (_kind, sc) in enumerate(d["kinds"]):
+        if not isinstance(sc, K1.PlanShardScanner):
+            continue
+        t = sc.tables
+        acc = dict(positions=0, warps=0, warp_steps=0, lane_steps=0,
+                   deep_warps=0)
+        for w0 in range(0, len(d["corpus"]), CHUNK):
+            staged, _n = scan_inputs(sc, d["corpus"][w0:w0 + CHUNK], device)
+            flat = staged.reshape(-1)
+            n_pos = flat.shape[0] - TILE
+            room = K1.segment_room(n_pos, SEG, HALO, flat.device)
+            _out, disp = K1._prologue_plain(flat, n_pos, t, room)
+            steps = torch.zeros(n_pos, dtype=torch.int64, device=flat.device)
+            for sp in t.spec:
+                steps += disp != t.p0_miss  # live before the step
+                disp, _out = K1.plan_steps_plain(
+                    [sp], t, lambda o: flat[o:o + n_pos], room, disp, _out)
+            warp = steps.reshape(-1, 32).max(1).values
+            acc["positions"] += n_pos
+            acc["warps"] += warp.numel()
+            acc["warp_steps"] += int(warp.sum())
+            acc["lane_steps"] += int(steps.sum())
+            acc["deep_warps"] += int((warp >= 7).sum())
+            del staged, flat, room, disp, steps, _out
+        out.append(dict(
+            shard=si, positions=acc["positions"],
+            steps_per_position=acc["lane_steps"] / acc["positions"],
+            warp_steps_per_warp=acc["warp_steps"] / acc["warps"],
+            lane_util=acc["lane_steps"] / max(32 * acc["warp_steps"], 1),
+            deep_warp_share=acc["deep_warps"] / acc["warps"]))
+    return out
+
+
 def depth_step_probes(staged, t, input_size, seg):
     """Walkers that probe at each step of the stride-1 depth walk:
     [every position (s0), step 1, step 2, ...]; entry s >= 1 is the
@@ -1278,7 +1321,7 @@ def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
 
     out = {}
     for name, d in dicts.items():
-        k1, ka, kb = [], [], []
+        k1, ka, kb, kc = [], [], [], []
         for rec, sh in zip(d["recs"], ct[name]["shards"]):
             steps = plan_step_probes(rec["staged"], rec["scanner"].tables,
                                      SEG)
@@ -1286,9 +1329,14 @@ def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
             k1 += flat(steps)
             ka += flat(steps[:cut])
             kb += flat(steps[cut:])
+            # count mode walks without the segment cut
+            kc += flat(plan_step_probes(rec["staged"],
+                                        rec["scanner"].tables, 0))
         out[f"plan_scan/{name}"] = bound(k1)
+        out[f"plan_scan_count/{name}"] = bound(kc)
         out[f"plan_scan_compact_a/{name}"] = bound(ka)
         out[f"planb_scan/{name}"] = bound(kb)
+        out[f"plan_scan/{name}"]["lane_stats"] = lane_stats(d, device)
     # K2, and from its per-step live walkers K4 and K5: the banked-PHF
     # walk reads s0, then per live walker and step the row's displacement
     # (r) and the slot that points at (packed); K5 makes K4's gathers in
@@ -2012,6 +2060,16 @@ def main() -> int:
          **engine_secs)
     k1, _ = time_kernels(dicts["ascii50k"]["recs"], [])
     k1c, k2 = time_kernels(clam["recs"], clam["depth_recs"])
+    gb = gather_bounds(g_rows, dicts, lower, ct, phf_singles, device)
+    geometry = K1.plan_kernel_geometry(device)
+    for name, r in (("ascii50k", k1), ("clamav5k", k1c)):
+        # K1 beside both bounds: bytes and dependent gathers, per mode
+        r.update(gather_bound_ms=gb[f"plan_scan/{name}"]["gather_bound_ms"],
+                 count_gather_bound_ms=gb[f"plan_scan_count/{name}"][
+                     "gather_bound_ms"],
+                 share_of_bytes_bound=r["bound_ms"] / r["ms"],
+                 count_share_of_bytes_bound=r["count_bound_ms"]
+                 / r["count_ms"], geometry=geometry)
     for label, r in (("plan_scan/ascii50k", k1), ("plan_scan/clamav5k", k1c),
                      ("depth_scan/clamav5k", k2)):
         emit("times", kernel=label, per="16 MiB chunk, 4 shards", **r)
@@ -2020,9 +2078,10 @@ def main() -> int:
              seconds=d["cli_seconds"],
              gb_per_s=len(d["corpus"]) / d["cli_seconds"] / 1e9)
 
-    gb = gather_bounds(g_rows, dicts, lower, ct, phf_singles, device)
     measured = {"plan_scan/ascii50k": k1["ms"], "plan_scan/clamav5k":
-                k1c["ms"], "depth_scan/clamav5k": k2["ms"],
+                k1c["ms"], "plan_scan_count/ascii50k": k1["count_ms"],
+                "plan_scan_count/clamav5k": k1c["count_ms"],
+                "depth_scan/clamav5k": k2["ms"],
                 "pair_scan/lower50k": k3["ms"], "phf_scan/clamav5k":
                 k4["ms"], "phf_scan_multi/clamav5k": k5["ms"]}
     for name, r in ct.items():
@@ -2142,7 +2201,7 @@ def main() -> int:
     for k in kernels:
         k.update({key: v for key, v in
                   gb.get(on_its_data.get(k["name"]), {}).items()
-                  if key != "ms"})
+                  if key not in ("ms", "lane_stats")})
         check(k["launches"] > 0, f"{k['name']}: no launch on its path")
     for name in ("plan_scan", "plan_scan_compact_a", "planb_scan",
                  "depth_scan"):

@@ -1,8 +1,9 @@
-// The plan walk's step chain, shared by the plan kernel (plan_scan.cu:
-// every step, or the steps before a compaction cut) and the compacted
-// phase-B kernel (planb_scan.cu: the steps after the cut, survivors
-// only).  Replaces phfpfac_tpu/ops/pallas_plan.py::_run_steps; the plain
-// torch version is ops/plan.py::plan_steps_plain.
+// The plan walk's step chain over the raw step rows, walked by the
+// compacted phase-B kernel (planb_scan.cu: the steps after the cut,
+// survivors only), and the helpers it shares with the plan kernel
+// (plan_scan.cu, which walks pre-decoded steps of its own: segment_room,
+// count_shift, kMaxSteps).  Replaces phfpfac_tpu/ops/pallas_plan.py::
+// _run_steps; the plain torch version is ops/plan.py::plan_steps_plain.
 
 #pragma once
 

@@ -11,8 +11,8 @@
 // live walkers in cap-sized buffers and their true number in a device
 // counter.  One thread per survivor slot i < min(count, cap): it reads
 // its walker, recomputes the segment room from pos, walks the deep
-// steps with the step body the plan kernel uses (plan_step.cuh),
-// reading its windows at pairs[pos + o] itself, and then
+// steps with plan_step.cuh's step body over the raw step rows, reading
+// its windows at pairs[pos + o] itself, and then
 //   bitmap mode: bits[pos] |= deep, cnt[pos] += popc(deep)  (a position
 //     holds one walker, and deep and shallow bits are disjoint, so no
 //     atomics are needed);

@@ -61,6 +61,14 @@ STEP_FIELDS = ("kind", "depth0", "off", "nb", "k0", "s_off", "s_nb",
                "s_k0", "s_nibble", "miss", "col_bits")
 P0_MODES = {"dense": 0, "s0": 1, "s0x": 2}
 
+# the plan kernel's geometry (csrc/plan_scan.cu kTile, kHalo)
+PLAN_TILE = 2048  # a block's tile: 8 warp tiles of 256 positions
+PLAN_HALO = 32  # staged words past a warp tile that its windows may read
+# one step's ready operands, as the tile kernel reads them (struct Step)
+STEP_DESC_FIELDS = ("o", "pair", "base", "lo", "span", "cmask", "finm",
+                    "vmask", "vsh", "s_base", "s_lo", "s_span", "wsh",
+                    "smask", "fsh", "fmask", "amask")
+
 launches = 0  # CUDA kernel launches (the CPU plain path never counts)
 launches_compact_a = 0  # launches of the compacted scan's phase A ...
 launches_compact_b = 0  # ... and of its phase B
@@ -77,6 +85,7 @@ class PlanKernelTables:
     steps: torch.Tensor  # int32 [n_steps, len(STEP_FIELDS)]
     code_of: torch.Tensor  # int32 [256]
     spec: tuple  # tuple[StepSpec]
+    desc: np.ndarray  # host uint32 [n_steps, 17]: step_descriptors(spec)
     cb: int
     p0_mode: str
     p0_miss: int
@@ -98,6 +107,7 @@ class PlanKernelTables:
             p0=dev(pt.p0_banks), packed=dev(pt.packed_banks),
             side=dev(pt.side_banks), steps=dev(steps),
             code_of=dev(pt.code_of), spec=tuple(pt.steps),
+            desc=step_descriptors(pt.steps, pt.code_bits, pt.p0_miss),
             cb=pt.code_bits, p0_mode=pt.p0_mode, p0_miss=pt.p0_miss,
         )
 
@@ -300,6 +310,51 @@ def planb_scan_plain(staged: torch.Tensor, t: PlanKernelTables, result,
 
 # ---- CUDA kernels ----------------------------------------------------------
 
+def step_descriptors(spec: tuple, cb: int, p0_miss: int) -> np.ndarray:
+    """The steps of ``spec`` as the tile kernel's ready operands: uint32
+    [len(spec), len(STEP_DESC_FIELDS)], one row per step.
+
+    ``spec`` is the host copy of the ``steps`` rows (``t.spec``), so no
+    launch reads the device.  A probe of a table at (off, nb, k0) becomes
+    ``u = idx - lo; u < span ? banks[base + u] : -1`` with ``base = off *
+    128``, ``lo = k0 * 128``, ``span = nb * 128`` (unsigned arithmetic:
+    a negative ``idx`` misses); a mono step's symbol mask, fin flag, kept
+    bits and value shift come ready, and a pair step's side word is read
+    as ``(w >> ((sidx & smask) << fsh)) & fmask == (a1 & amask) + 1`` at
+    ``banks[sidx >> wsh]``.  The kernel drops a walker whose displacement
+    is the dead sentinel, so every step's miss must be it."""
+    rows = []
+    for sp in spec:
+        o = sp.depth0 - 1
+        if sp.miss != p0_miss or not 0 <= o < PLAN_HALO:
+            raise ValueError(f"a step the tile kernel cannot walk: {sp}")
+        if sp.col_bits:
+            cmask, finm, vsh = ((1 << sp.col_bits) - 1,
+                                1 << (sp.col_bits + 1), sp.col_bits + 2)
+        else:
+            cmask, finm, vsh = (1 << cb) - 1, 1 << cb, cb + 1
+        side = (3, 7, 2, 15, 7) if sp.s_nibble else (2, 3, 3, 255, 0xFFFFFFFF)
+        rows.append([o, int(sp.kind == "pair"), sp.off * LANE, sp.k0 * LANE,
+                     sp.nb * LANE, cmask, finm, (1 << vsh) - 1, vsh,
+                     sp.s_off * LANE, sp.s_k0 * LANE, sp.s_nb * LANE, *side])
+    out = np.asarray(rows, np.uint32).reshape(-1, len(STEP_DESC_FIELDS))
+    out.setflags(write=False)  # shared by every launch over these steps
+    return out
+
+
+def check_staged(staged: torch.Tensor) -> None:
+    """The tile kernel's demands on the staged stream: a 16-byte aligned
+    view (its tiles arrive in 16-byte copies) of n_pos + TILE words, n_pos
+    a multiple of TILE (so a warp tile is whole and the last tile's
+    look-ahead of PLAN_HALO words stays inside the spare TILE)."""
+    if staged.data_ptr() % 16:
+        raise ValueError("staged: the plan kernel copies 16-byte chunks; "
+                         "need a 16-byte aligned view")
+    n_pos = staged.numel() - TILE
+    if n_pos < 0 or n_pos % TILE:
+        raise ValueError(f"n_pos must be a multiple of {TILE}, got {n_pos}")
+
+
 def _lib():
     from phfpfac_tpu_torch import _build
 
@@ -311,7 +366,22 @@ def _lib():
         lib.plan_scan.restype = i
         lib.plan_scan_compact_a.argtypes = scan_args + [i, p, p, p, p]
         lib.plan_scan_compact_a.restype = i
+        lib.plan_scan_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        lib.plan_scan_geometry.restype = i
     return lib
+
+
+def plan_kernel_geometry(device) -> dict:
+    """The tile kernel's geometry on ``device`` (CUDA): positions per
+    tile, threads and shared-memory bytes per block, resident blocks per
+    SM (bitmap mode under the segment cut)."""
+    vals = [ctypes.c_int() for _ in range(4)]
+    with torch.cuda.device(device):
+        err = _lib().plan_scan_geometry(*[ctypes.byref(v) for v in vals])
+    if err:
+        raise RuntimeError(f"plan_scan_geometry failed: CUDA error {err}")
+    return dict(zip(("tile", "threads", "smem_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
 
 
 def _lib_b():
@@ -363,6 +433,7 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
     check_operand(staged, dev, "staged")
     if seg_bytes & (seg_bytes - 1):
         raise ValueError("the plan kernel takes power-of-two segments")
+    check_staged(staged)
     n_pos = staged.numel() - TILE
     bitmap = emit == "bitmap"
     if bitmap:
@@ -375,7 +446,8 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
     _check_prev(prev_total, dev)
     head = (
         staged.data_ptr(), n_pos, t.p0.data_ptr(), t.p0.shape[0],
-        t.packed.data_ptr(), t.side.data_ptr(), t.steps.data_ptr(),
+        t.packed.data_ptr(), t.side.data_ptr(), t.desc.ctypes.data,
+        len(t.spec) if compact is None else compact[0],
     )
     mid = (
         t.cb, P0_MODES[t.p0_mode], t.p0_miss, seg_bytes, halo_bytes,
@@ -384,7 +456,7 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
     )
     result = (cnt, bits) if bitmap else total
     if compact is None:
-        err = _lib().plan_scan(*head, t.steps.shape[0], *mid, _stream(dev))
+        err = _lib().plan_scan(*head, *mid, _stream(dev))
         if err:
             raise RuntimeError(f"plan_scan launch failed: CUDA error {err}")
         launches += 1
@@ -394,7 +466,7 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
     surv_disp = torch.empty(cap, dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     err = _lib().plan_scan_compact_a(
-        *head, cut, *mid, cap, surv_pos.data_ptr(), surv_disp.data_ptr(),
+        *head, *mid, cap, surv_pos.data_ptr(), surv_disp.data_ptr(),
         count.data_ptr(), _stream(dev))
     if err:
         raise RuntimeError(

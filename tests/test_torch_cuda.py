@@ -435,6 +435,137 @@ def test_matcher_compacts_on_cuda_with_the_opt_in(dev, monkeypatch):
     assert [tuple(x) for x in got] == want
 
 
+# ---- the tile kernel's geometry: tile edges, mesh-cell views, deep lists ---
+
+def _plan_scanner(words, data, dev, train=None):
+    """(plan scanner, staged stream) of ``words`` over ``data``."""
+    cfg = PfacConfig(width=4096, num_shards=1)
+    sh = compile_patterns([Pattern(i + 1, w) for i, w in enumerate(words)],
+                          cfg).shards[0]
+    ms = padded_steps(sh.max_pat_len)
+    ps = K1.PlanShardScanner(sh, device=dev, train=train)
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    return ps, ps.stage(padded, len(data), ms)
+
+
+def _held_to_plain(staged, t, geoms):
+    """Every mode of K1 on ``staged`` against the plain version: bitmap
+    at each (seg, halo), count with a shift, a chain of 8.  -> launches."""
+    calls = 0
+    for seg, halo in geoms:
+        got = K1.plan_scan(staged, t, seg_bytes=seg, halo_bytes=halo)
+        want = K1.plan_scan_plain(staged, t, seg_bytes=seg, halo_bytes=halo)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        calls += 1
+    assert int(K1.plan_scan(staged, t, emit="count", shift=1)) == \
+        int(K1.plan_scan_plain(staged, t, emit="count", shift=1))
+    calls += 1
+    prev = want_prev = None
+    for _ in range(8):  # a chain: each shift parity from the last total
+        prev = K1.plan_scan(staged, t, emit="count", prev_total=prev)
+        want_prev = K1.plan_scan_plain(staged, t, emit="count",
+                                       prev_total=want_prev)
+        assert int(prev) == int(want_prev)
+        calls += 1
+    return calls
+
+
+@pytest.mark.parametrize("n_pos", [K1.PLAN_TILE, K1.PLAN_TILE + 1024,
+                                   1 << 16])
+@pytest.mark.parametrize("name", ["dense", "s0", "s0x"])
+def test_tile_kernel_equals_plain_at_every_tile_geometry(name, n_pos, dev):
+    """One tile, a partial last tile, many tiles; and a mesh cell's view
+    of the staged stream at an offset (parallel/mesh_pallas.py
+    _cell_window: a block of positions plus its 1,024-position halo)."""
+    words, data = _dictionary(name)
+    ps, staged = _plan_scanner(words, data[:n_pos], dev)
+    assert staged.numel() - 1024 == n_pos
+    before = K1.launches
+    geoms = [(0, 0), (64, 0), (4096, 512)]
+    calls = _held_to_plain(staged, ps.tables, geoms)
+    if n_pos >= 4 * K1.PLAN_TILE:
+        block = 2 * K1.PLAN_TILE
+        cell = staged.reshape(-1)[block:2 * block + 1024]
+        assert cell.data_ptr() % 16 == 0
+        calls += _held_to_plain(cell, ps.tables, geoms)
+    torch.cuda.synchronize()
+    assert K1.launches == before + calls  # one launch per call
+
+
+def _deep_window(dev):
+    """All 32 rotations of one 32 B pattern over that pattern repeated,
+    then random text: in the first half every walker lives through every
+    step, so the packed lists stay full for 31 rounds."""
+    rng = np.random.default_rng(5)
+    pat = bytes(rng.integers(97, 123, 32, dtype=np.uint8))
+    words = list(dict.fromkeys(pat[i:] + pat[:i] for i in range(32)))
+    words += [bytes(rng.integers(97, 123, int(rng.integers(2, 9)),
+                                 dtype=np.uint8)) for _ in range(300)]
+    data = pat * 1024 + bytes(rng.integers(97, 123, 1 << 15, dtype=np.uint8))
+    return _plan_scanner(words, data, dev)
+
+
+def test_tile_kernel_on_a_window_of_deep_walkers(dev):
+    ps, staged = _deep_window(dev)
+    t = ps.tables
+    assert len(t.spec) >= 8
+    before = K1.launches
+    calls = _held_to_plain(staged, t, [(0, 0), (4096, 512), (64, 0)])
+    bits = K1.plan_scan(staged, t)[1]
+    calls += 1
+    assert int(((bits[:1 << 15] >> 31) & 1).sum()) == (1 << 15) - 31
+    torch.cuda.synchronize()
+    assert K1.launches == before + calls
+
+
+@pytest.mark.parametrize("deep", [False, True])
+def test_compacted_survivors_as_sets_with_and_without_overflow(deep, dev):
+    """K1′'s survivors against the plain version's: the same sorted set
+    at a cap that holds them; at a cap that overflows, the true count and
+    ``cap`` distinct members of that set."""
+    if deep:
+        ps, staged = _deep_window(dev)
+    else:
+        ps, staged, _ds, _st2, _n = _scanners("dense", dev, True)
+    t = ps.tables
+    before = K1.launches_compact_a
+    for cut in sorted({1, max(1, len(t.spec) // 2)}):
+        for seg, halo in ((0, 0), (4096, 512)):
+            kw = dict(cut=cut, seg_bytes=seg, halo_bytes=halo)
+            want, wsurv = K1.plan_scan_compact_a_plain(staged, t, cap=1 << 30,
+                                                       **kw)
+            count = int(wsurv[2])
+            assert count >= 3
+            wp, wd = _sorted_survivors(wsurv, count)
+            for cap in (_fit_cap(count), count // 3):
+                got, surv = K1.plan_scan_compact_a(staged, t, cap=cap, **kw)
+                assert torch.equal(got[1], want[1])
+                assert int(surv[2]) == count
+                gp, gd = _sorted_survivors(surv, cap)
+                if cap >= count:
+                    assert torch.equal(gp, wp) and torch.equal(gd, wd)
+                else:
+                    assert gp.numel() == cap
+                    assert torch.unique(gp).numel() == cap
+                    at = torch.searchsorted(wp, gp)
+                    assert torch.equal(wp[at], gp) and torch.equal(wd[at], gd)
+    torch.cuda.synchronize()
+    assert K1.launches_compact_a > before
+
+
+def test_plan_kernel_refuses_a_misaligned_staged_view(dev):
+    ps, staged, _ds, _st2, _n = _scanners("dense", dev, False)
+    flat = staged.reshape(-1)
+    view = flat[1:flat.numel() - 1023]
+    assert view.data_ptr() % 16
+    before = K1.launches
+    with pytest.raises(ValueError, match="aligned"):
+        K1.plan_scan(view, ps.tables)
+    with pytest.raises(ValueError, match="aligned"):
+        K1.plan_scan_compact_a(view, ps.tables, cut=1, cap=8192)
+    assert K1.launches == before
+
+
 # ---- the probes: P1 (probe_gather) and P2 (probe_compact, probe_copy) ------
 
 @pytest.mark.parametrize("arm", ["i32", "i16", "i8", "packed", "alu"])
