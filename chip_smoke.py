@@ -2,7 +2,7 @@
 
 Run on a machine with one CUDA GPU, from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--mib 64]
+    python3 chip_smoke.py [--seed 0] [--mib 64] [--soak]
 
 It builds the CUDA kernels from ``phfpfac_tpu_torch/csrc``, holds each
 against its plain torch version on the card, drives the gphf CLI main
@@ -16,8 +16,9 @@ CLI's ``--save-tables`` / ``--load-tables`` and ``--charset``; then the
 two probe kernels (parity and their sweeps), the device mesh with four
 cells on the one card (plan, compacted plan, turbo and depth meshes),
 two cooperating CLI processes over gloo, ``--profile`` and the
-multi-device dry run; checks every output, times the kernels and prints
-one JSON line per phase.  The last line is
+multi-device dry run; then a soak of random dictionaries through the
+bitmap walks (``soak_phase``; ``--soak`` runs it alone); checks every
+output, times the kernels and prints one JSON line per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and exits
 non-zero.  Without a GPU, or without the package beside it, it exits
 non-zero and prints no result.
@@ -47,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import re
@@ -1225,12 +1227,31 @@ def plan_step_probes(staged, t, seg):
     return items
 
 
+def warp_lane_stats(steps: torch.Tensor) -> dict:
+    """How one walker per thread keeps a warp's lanes busy, from the steps
+    each position's walker probes (``steps``, int64 [n_pos]): a warp of 32
+    positions runs a step while any lane's walker is live before it
+    (``warp_steps_per_warp``); ``lane_util`` = live lane-steps over 32 x
+    warp steps; ``deep_warp_share``: warps of 7 steps or more."""
+    warp = steps.reshape(-1, 32).max(1).values
+    return dict(positions=steps.numel(), warps=warp.numel(),
+                lane_steps=int(steps.sum()), warp_steps=int(warp.sum()),
+                deep_warps=int((warp >= 7).sum()))
+
+
+def lane_ratios(acc: dict) -> dict:
+    return dict(
+        positions=acc["positions"],
+        steps_per_position=acc["lane_steps"] / acc["positions"],
+        warp_steps_per_warp=acc["warp_steps"] / acc["warps"],
+        lane_util=acc["lane_steps"] / max(32 * acc["warp_steps"], 1),
+        deep_warp_share=acc["deep_warps"] / acc["warps"])
+
+
 def lane_stats(d, device):
     """Per plan shard, over the whole corpus in 16 MiB windows, from the
     plain version: how one walker per thread (K1's mapping up to PR 4)
-    keeps a warp's lanes busy.  A warp of 32 positions runs a step while
-    any lane's walker is live before it: ``warp_steps_per_warp``;
-    ``lane_util`` = live lane-steps over 32 x warp steps."""
+    keeps a warp's lanes busy (``warp_lane_stats``)."""
     from phfpfac_tpu_torch.ops import plan as K1
     from phfpfac_tpu_torch.ops.staging import TILE
 
@@ -1239,8 +1260,7 @@ def lane_stats(d, device):
         if not isinstance(sc, K1.PlanShardScanner):
             continue
         t = sc.tables
-        acc = dict(positions=0, warps=0, warp_steps=0, lane_steps=0,
-                   deep_warps=0)
+        acc: dict = {}
         for w0 in range(0, len(d["corpus"]), CHUNK):
             staged, _n = scan_inputs(sc, d["corpus"][w0:w0 + CHUNK], device)
             flat = staged.reshape(-1)
@@ -1252,26 +1272,16 @@ def lane_stats(d, device):
                 steps += disp != t.p0_miss  # live before the step
                 disp, _out = K1.plan_steps_plain(
                     [sp], t, lambda o: flat[o:o + n_pos], room, disp, _out)
-            warp = steps.reshape(-1, 32).max(1).values
-            acc["positions"] += n_pos
-            acc["warps"] += warp.numel()
-            acc["warp_steps"] += int(warp.sum())
-            acc["lane_steps"] += int(steps.sum())
-            acc["deep_warps"] += int((warp >= 7).sum())
+            for k, v in warp_lane_stats(steps).items():
+                acc[k] = acc.get(k, 0) + v
             del staged, flat, room, disp, steps, _out
-        out.append(dict(
-            shard=si, positions=acc["positions"],
-            steps_per_position=acc["lane_steps"] / acc["positions"],
-            warp_steps_per_warp=acc["warp_steps"] / acc["warps"],
-            lane_util=acc["lane_steps"] / max(32 * acc["warp_steps"], 1),
-            deep_warp_share=acc["deep_warps"] / acc["warps"]))
+        out.append(dict(shard=si, **lane_ratios(acc)))
     return out
 
 
-def depth_step_probes(staged, t, input_size, seg):
-    """Walkers that probe at each step of the stride-1 depth walk:
-    [every position (s0), step 1, step 2, ...]; entry s >= 1 is the
-    number of walkers live after s characters (and inside the cut)."""
+def depth_live(staged, t, input_size, seg, halo=HALO):
+    """Per step s >= 1 of the stride-1 depth walk, the walkers live
+    before it (and inside the cut): bool [n_pos], one a step."""
     from phfpfac_tpu_torch.compile.depth import DISP_MISS
     from phfpfac_tpu_torch.ops.plan import probe_banks
     from phfpfac_tpu_torch.ops.staging import TILE
@@ -1281,21 +1291,79 @@ def depth_step_probes(staged, t, input_size, seg):
     lim = None
     if seg:
         pos = torch.arange(n_pos, dtype=torch.int64, device=flat.device)
-        lim = torch.clamp((pos // seg + 1) * seg + HALO,
+        lim = torch.clamp((pos // seg + 1) * seg + halo,
                           max=input_size) - pos
     cur = flat[:n_pos].to(torch.int64)
     v = probe_banks(t.s0, cur, 0, t.s0.shape[0], 0)
     disp = torch.where(v >= 0, v >> 1, DISP_MISS)
-    counts = [n_pos]
     for s, (off, nb, k0) in enumerate(t.steps.cpu().tolist(), 1):
         if lim is not None:
             disp = torch.where(s < lim, disp, DISP_MISS)
-        counts.append(int((disp != DISP_MISS).sum()))
+        yield disp != DISP_MISS
         cur = flat[s:s + n_pos].to(torch.int64)
         g = probe_banks(t.packed, disp + cur, off, nb, k0)
         hit = (g >= 0) & ((g & 255) == cur)
         disp = torch.where(hit, g >> 9, DISP_MISS)
-    return counts
+
+
+def depth_step_probes(staged, t, input_size, seg):
+    """Walkers that probe at each step of the stride-1 depth walk:
+    [every position (s0), step 1, step 2, ...]; entry s >= 1 is the
+    number of walkers live after s characters (and inside the cut)."""
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    return [staged.numel() - TILE] + [
+        int(live.sum()) for live in depth_live(staged, t, input_size, seg)]
+
+
+def pair_live(staged, t):
+    """Per pair step k >= 1 of the stride-2 walk (exact mode), the
+    walkers live before it: bool [n_pos], one a step."""
+    from phfpfac_tpu_torch.ops.plan import probe_banks
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    flat = staged.reshape(-1)
+    n_pos = flat.shape[0] - TILE
+    cb = t.cb
+    v = probe_banks(t.p0, flat[:n_pos].to(torch.int64), 0, t.p0.shape[0], 0)
+    disp = torch.where(v >= 0, v >> 2, t.disp_miss)
+    for k, (po, pn, pk0, *_side) in enumerate(t.step_rows, 1):
+        yield disp != t.disp_miss
+        cur = flat[2 * k:2 * k + n_pos].to(torch.int64)
+        g = probe_banks(t.packed, disp + cur, po, pn, pk0)
+        hit = (g >= 0) & ((g & ((1 << (2 * cb)) - 1)) == cur)
+        disp = torch.where(hit, g >> (2 * cb + 1), t.disp_miss)
+
+
+def walk_lane_stats(clam, lower) -> dict:
+    """Modelled, not measured: K2 on the depth path (clamav5k's first 16
+    MiB, a 6,144 B segment) and K3 on the pair path (lower50k, exact),
+    per kernel over its 4 shards, from the plain versions' live walkers:
+    how one walker per thread (the parent's mapping) keeps a warp's lanes
+    busy (``warp_lane_stats``), and the share of positions still live
+    after step 1, which the new kernels' prologue leaves to the lists."""
+    out = {}
+    for label, recs, live_of in (
+            ("depth_scan/clamav5k", clam["depth_recs"],
+             lambda r: depth_live(r["staged"], r["scanner"].tables, r["n"],
+                                  6144)),
+            ("pair_scan/lower50k", lower["recs"],
+             lambda r: pair_live(r["staged"], r["scanner"].tables))):
+        acc, listed = {}, 0
+        for r in recs:
+            steps = None
+            for s, live in enumerate(live_of(r), 1):
+                steps = live.to(torch.int64) if steps is None \
+                    else steps + live
+                if s == 2:
+                    listed += int(live.sum())
+            if steps is None:
+                continue
+            for k, v in warp_lane_stats(steps).items():
+                acc[k] = acc.get(k, 0) + v
+        out[label] = dict(**lane_ratios(acc),
+                          live_after_step1_share=listed / acc["positions"])
+    return out
 
 
 def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
@@ -1370,6 +1438,253 @@ def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
         del staged
     out["pair_scan/lower50k"] = bound(k3)
     return out
+
+
+# ---- the soak: random dictionaries through the bitmap walks -----------------
+
+# Everything the soak reads is here: its seeds, its sizes and its
+# generators (soak_case).  ``python3 chip_smoke.py --soak`` runs it alone.
+SOAK_SEEDS = 12
+SOAK_BYTES = MIB  # corpus a seed
+SOAK_E2E_BYTES = 128 * 1024  # of it, end to end against the oracle
+SOAK_KINDS = ("dense", "s0", "s0x", "class")
+SOAK_DEPTH_GEOMS = ((512, 64), (6144, 512), (100, 3), (0, 0))
+SOAK_SEG = (512, 64)  # Matcher.match_chunked's segment cut in the soak
+
+
+def soak_case(seed: int, tmp: str):
+    """One seed's inputs, from a numpy generator seeded by it: (kind,
+    compiled dictionary, the patterns the oracle takes, corpus).  The
+    kinds rotate: a small alphabet (the dense prologue), a mid alphabet
+    with two patterns of 40-64 B (the s0 prologue and the long-pattern
+    split), 6,000-9,000 random byte signatures and one of 33-40 B (s0x),
+    class patterns (``--charset``); each corpus holds planted patterns."""
+    from phfpfac_tpu_torch.compile.tables import (
+        compile_class_patterns,
+        compile_patterns,
+    )
+    from phfpfac_tpu_torch.frontend.charset import read_class_patterns
+    from phfpfac_tpu_torch.frontend.patterns import Pattern
+    from phfpfac_tpu_torch.utils.config import PfacConfig
+
+    rng = np.random.default_rng(10_000 + seed)
+    kind = SOAK_KINDS[seed % len(SOAK_KINDS)]
+    cfg = PfacConfig(width=4096, num_shards=2)
+    count = int(rng.integers(500, 3000))
+    if kind == "class":
+        specs, plain = make_class_specs(rng, count=count, again=20)
+        corpus, _ = make_corpus(rng, plain, SOAK_BYTES, LOWER, plants=2000)
+        pat_file, _ = write_inputs(tmp, f"soak{seed}", specs, corpus, False)
+        cps = read_class_patterns(pat_file)
+        return kind, compile_class_patterns(cps, cfg), cps, corpus
+    if kind == "s0x":  # the split prologue pays off at 3,000 a shard
+        alphabet = None
+        count = int(rng.integers(6000, 9000))
+        pats = list(dict.fromkeys(
+            bytes(rng.integers(0, 256, int(rng.integers(3, 33)),
+                               dtype=np.uint8)) for _ in range(count)))
+        pats.append(bytes(rng.integers(0, 256, int(rng.integers(33, 41)),
+                                       dtype=np.uint8)))
+    else:
+        width = int(rng.integers(4, 13) if kind == "dense"
+                    else rng.integers(20, 61))
+        alphabet = rng.choice(np.arange(33, 127, dtype=np.uint8), width,
+                              replace=False)
+        pats = make_stem_patterns(rng, alphabet, count=count)
+        known = set(pats)
+        pats += [p for p in dict.fromkeys(
+            bytes(rng.choice(alphabet, int(rng.integers(1, 4))))
+            for _ in range(20)) if p not in known]
+        if kind == "s0":  # last: make_corpus plants the last three first
+            pats += [bytes(rng.choice(alphabet, int(rng.integers(40, 65))))
+                     for _ in range(2)]
+    corpus, _ = make_corpus(rng, pats, SOAK_BYTES, alphabet, plants=2000)
+    compiled = compile_patterns(
+        [Pattern(i + 1, p) for i, p in enumerate(pats)], cfg)
+    return kind, compiled, [Pattern(i + 1, p) for i, p in enumerate(pats)], \
+        corpus
+
+
+def _built(make, *a, **kw):
+    """The scanner ``make`` builds, or None where its tables refuse."""
+    from phfpfac_tpu_torch.compile.depth import DepthUnsupported
+
+    try:
+        return make(*a, **kw)
+    except DepthUnsupported:  # the plan and pair builders' refusals too
+        return None
+
+
+def soak_plan(sc, corpus, device, what) -> int:
+    """K1 in bitmap (under the cut and exact) and count mode, K1′ + K6 at
+    an explicit cut with a cap that holds every survivor and with one
+    that overflows, against the plain versions.  -> checks made."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    st, _n = scan_inputs(sc, corpus, device)
+    t, n_pos = sc.tables, st.numel() - TILE
+    checks = 0
+    for seg, halo in (SOAK_SEG, (0, 0)):
+        kw = dict(seg_bytes=seg, halo_bytes=halo)
+        agree("plan_scan", K1.plan_scan(st, t, **kw),
+              K1.plan_scan_plain(st, t, **kw), f"{what}: K1 seg={seg}")
+        checks += 1
+    agree("plan_scan", [K1.plan_scan(st, t, emit="count", shift=1)],
+          [K1.plan_scan_plain(st, t, emit="count", shift=1)],
+          f"{what}: K1 count")
+    checks += 1
+    if len(t.spec) < 2:
+        return checks
+    cut = len(t.spec) // 2
+    for seg, halo in (SOAK_SEG, (0, 0)):
+        kw = dict(cut=cut, seg_bytes=seg, halo_bytes=halo)
+        w = f"{what}: K1' + K6 cut={cut} seg={seg}"
+        want, wsurv = K1.plan_scan_compact_a_plain(st, t, cap=n_pos, **kw)
+        count = int(wsurv[2])
+        cap = max(count, 1)
+        got, surv = K1.plan_scan_compact_a(st, t, cap=cap, **kw)
+        agree("plan_scan_compact_a", [*got, *sorted_survivors(surv, cap)],
+              [*want, *sorted_survivors(wsurv, cap)], w)
+        whole = K1.plan_scan_plain(st, t, seg_bytes=seg, halo_bytes=halo)
+        res = K1.plan_scan_compact(st, t, cap=cap, **kw)
+        agree("planb_scan", res[:2], whole, f"{w}: != K1's plain version")
+        check(int(res[2]) == count, f"{w}: survivor count")
+        checks += 2
+        if count < 2:
+            continue
+        cap = count // 2  # overflows: the true count, cap of the set
+        got, surv = K1.plan_scan_compact_a(st, t, cap=cap, **kw)
+        agree("plan_scan_compact_a", got, want, f"{w} cap={cap}")
+        check(int(surv[2]) == count, f"{w} cap={cap}: true count")
+        gp, gd, _ = sorted_survivors(surv, cap)
+        wp, wd, _ = sorted_survivors(wsurv, count)
+        at = torch.searchsorted(wp, gp).clamp(max=count - 1)
+        check(torch.unique(gp).numel() == cap and torch.equal(wp[at], gp)
+              and torch.equal(wd[at], gd),
+              f"{w} cap={cap}: survivors not {cap} of the plain set")
+        checks += 1
+    return checks
+
+
+def soak_depth(ds, corpus, device, what) -> int:
+    """K2 at every segment geometry of the soak and exact, with its
+    dead_exit and (exact) with it off, count mode and a chained count,
+    against the plain version.  -> checks made."""
+    from phfpfac_tpu_torch.ops import depth as K2
+
+    st, n = scan_inputs(ds, corpus, device)
+    t = ds.tables
+    checks = 0
+    for tt, geoms in ((t, SOAK_DEPTH_GEOMS),
+                      (dataclasses.replace(t, dead_exit=False), ((0, 0),))):
+        for seg, halo in geoms:
+            kw = dict(input_size=n, seg_bytes=seg, halo_bytes=halo)
+            agree("depth_scan", K2.depth_scan(st, tt, **kw),
+                  K2.depth_scan_plain(st, tt, **kw),
+                  f"{what}: K2 seg={seg}+{halo} dead_exit={tt.dead_exit}")
+            checks += 1
+    prev = want = None
+    for shift in (1, 0):  # a count, then a count chained to it
+        prev = K2.depth_scan(st, t, input_size=n, emit="count", shift=shift,
+                             prev_total=prev)
+        want = K2.depth_scan_plain(st, t, input_size=n, emit="count",
+                                   shift=shift, prev_total=want)
+        agree("depth_scan", [prev], [want], f"{what}: K2 count")
+        checks += 1
+    return checks
+
+
+def soak_pair(ps, corpus, device, what) -> int:
+    """K3 with its dead_exit and with it off, bitmap and count, against
+    the plain version.  -> checks made."""
+    from phfpfac_tpu_torch.ops import pair as K3
+
+    st, _n = scan_inputs(ps, corpus, device)
+    checks = 0
+    for tt in (ps.tables, dataclasses.replace(ps.tables, dead_exit=False)):
+        w = f"{what}: K3 dead_exit={tt.dead_exit}"
+        agree("pair_scan", K3.pair_scan(st, tt), K3.pair_scan_plain(st, tt),
+              w)
+        agree("pair_scan", [K3.pair_scan(st, tt, emit="count", shift=1)],
+              [K3.pair_scan_plain(st, tt, emit="count", shift=1)],
+              f"{w} count")
+        checks += 2
+    return checks
+
+
+def soak_phase(device) -> dict:
+    """Over SOAK_SEEDS seeds (soak_case): K1, K1′ + K6, K2 and K3 on every
+    shard, bit for bit against their plain versions, and
+    ``Matcher.match_chunked`` on the card under a 512 + 64 B segment cut
+    and in exact mode against the host oracle.  The first mismatch fails
+    the run."""
+    from phfpfac_tpu_torch.ops import depth as K2
+    from phfpfac_tpu_torch.ops import pair as K3
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.oracle.ac import match_oracle
+    from phfpfac_tpu_torch.parallel.matcher import Matcher
+    from phfpfac_tpu_torch.utils.config import PfacConfig
+
+    t0 = time.perf_counter()
+    checks = dict(plan_scan=0, depth_scan=0, pair_scan=0, end_to_end=0)
+    p0_modes, kinds, refused = set(), [], dict(plan=0, depth=0, pair=0)
+    cfgs = {"segment": PfacConfig(width=4096, num_shards=2,
+                                  truncation="segment",
+                                  segment_bytes=SOAK_SEG[0],
+                                  halo_bytes=SOAK_SEG[1]),
+            "none": PfacConfig(width=4096, num_shards=2, truncation="none")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in range(SOAK_SEEDS):
+            kind, compiled, pats, corpus = soak_case(seed, tmp)
+            kinds.append(kind)
+            train = corpus[:MIB]
+            for mode, cfg in cfgs.items():
+                m = Matcher(compiled, cfg, device=device, train=train)
+                got = m.match_chunked(corpus[:SOAK_E2E_BYTES],
+                                      chunk_bytes=SOAK_E2E_BYTES // 4)
+                # the second mode's matcher takes the tables built here
+                compiled.plan_tables = m.built_plan_tables()
+                if kind == "class":
+                    want = class_oracle(pats, corpus[:SOAK_E2E_BYTES])
+                else:
+                    want = np.asarray(match_oracle(
+                        pats, corpus[:SOAK_E2E_BYTES], cfg),
+                        np.int64).reshape(-1, 2)
+                check(np.array_equal(np.asarray(got).reshape(-1, 2), want),
+                      f"soak seed {seed} ({kind}, {mode}): match_chunked "
+                      f"!= the oracle")
+                checks["end_to_end"] += 1
+                if mode != "segment":
+                    continue
+                for si, (_k, sc) in enumerate(shard_kernels(m)):
+                    if sc is None:
+                        continue
+                    what = f"soak seed {seed} ({kind}) shard {si}"
+                    plan = sc if isinstance(sc, K1.PlanShardScanner) else \
+                        _built(K1.PlanShardScanner, sc.shard, device=device,
+                               train=train)
+                    depth = _built(K2.DepthShardScanner, sc.shard,
+                                   device=device)
+                    pair = _built(K3.PairShardScanner, sc.shard,
+                                  device=device)
+                    for name, s, run in (("plan", plan, soak_plan),
+                                         ("depth", depth, soak_depth),
+                                         ("pair", pair, soak_pair)):
+                        if s is None:
+                            refused[name] += 1
+                        else:
+                            checks[f"{name}_scan"] += run(s, corpus, device,
+                                                          what)
+                    if plan is not None:
+                        p0_modes.add(plan.tables.p0_mode)
+    check(p0_modes == {"dense", "s0", "s0x"},
+          f"soak: the generators reached the prologues {sorted(p0_modes)}")
+    check(all(checks.values()), f"soak: a kernel went unchecked {checks}")
+    return dict(seeds=SOAK_SEEDS, kinds=kinds, corpus_bytes=SOAK_BYTES,
+                end_to_end_bytes=SOAK_E2E_BYTES, checks=checks,
+                total_checks=sum(checks.values()), p0_modes=sorted(p0_modes),
+                refused=refused, seconds=time.perf_counter() - t0)
 
 
 # ---- the mesh, the two-rank run, --profile, the dry run ----------------------
@@ -1609,6 +1924,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mib", type=int, default=64,
                     help="main-path corpus size per dictionary")
+    ap.add_argument("--soak", action="store_true",
+                    help="build the kernels, run the soak phase alone and "
+                         "stop (no result line)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1643,6 +1961,10 @@ def main() -> int:
     _build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          sources=list(_build.SOURCES))
+
+    if args.soak:
+        emit("soak", **soak_phase(device))
+        return 0
 
     rng = np.random.default_rng(args.seed)
     size = args.mib * MIB
@@ -2043,6 +2365,9 @@ def main() -> int:
         emit("dryrun", cells=cell_devices(),
              seconds=time.perf_counter() - t0, **dry)
 
+    # ---- 4i. the soak: random dictionaries through the bitmap walks ----
+    emit("soak", **soak_phase(device))
+
     # ---- 5. times ----
     ct = {name: compact_times(name, d) for name, d in dicts.items()}
     for name, r in ct.items():
@@ -2093,6 +2418,10 @@ def main() -> int:
          rate="per table (the prologue's and each step's, at its own "
               "size): the best rate probe_gather measured for int32 over "
               "the swept tables no larger than it", **gb)
+    emit("lane_stats", modelled=True,
+         source="the plain versions' live walkers on one 16 MiB window, "
+                "4 shards; one walker per thread, 32 positions a warp",
+         **walk_lane_stats(clam, lower))
     for label, r in gb.items():
         # a bound that a kernel beats is no bound
         check(r["ms"] >= r["gather_bound_ms"],

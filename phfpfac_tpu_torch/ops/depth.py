@@ -13,8 +13,9 @@ stream (ops.staging.stage_input):
   ``pos + t < min(input_size, seg_end + halo)``.
 
 Same output contract as ops.plan.  ``depth_scan`` is the kernel
-wrapper: a CUDA tensor launches ``csrc/depth_scan.cu``, a CPU tensor
-runs ``depth_scan_plain``.
+wrapper: a CUDA tensor launches ``csrc/depth_scan.cu`` (warp tiles over
+pre-decoded steps, ``depth_descriptors``), a CPU tensor runs
+``depth_scan_plain``.
 """
 
 from __future__ import annotations
@@ -35,16 +36,21 @@ from phfpfac_tpu_torch.ops.plan import (
     CountScan,
     ShardScanner,
     check_operand,
+    check_staged,
     count_total,
     popcount32,
     probe_banks,
 )
 from phfpfac_tpu_torch.ops.staging import (
+    LANE,
     TILE,
     stage_input,
     staged_rows,
     to_device_bytes,
 )
+
+# one step's ready operands, as the tile kernel reads them (struct Step)
+DEPTH_DESC_FIELDS = ("base", "lo", "span")
 
 launches = 0  # CUDA kernel launches (the CPU plain path never counts)
 
@@ -56,6 +62,7 @@ class DepthKernelTables:
     s0: torch.Tensor  # int32 [nb_s0, 128]
     packed: torch.Tensor  # int32 [NB, 128]
     steps: torch.Tensor  # int32 [n_steps - 1, 3]: (off, nb, k0) of T_t
+    desc: np.ndarray  # host uint32 [n_steps - 1, 3]: depth_descriptors
     n_steps: int
     # a dead walker's probe (DISP_MISS + c) lies past every table, so
     # the kernel may stop it: checked here, never assumed
@@ -74,8 +81,23 @@ class DepthKernelTables:
                 device)
 
         return cls(s0=dev(dt.s0_banks), packed=dev(dt.packed_banks),
-                   steps=dev(steps), n_steps=dt.n_steps,
-                   dead_exit=dead_exit)
+                   steps=dev(steps), desc=depth_descriptors(steps),
+                   n_steps=dt.n_steps, dead_exit=dead_exit)
+
+
+def depth_descriptors(steps: np.ndarray) -> np.ndarray:
+    """The (off, nb, k0) rows of the depth tables as the tile kernel's
+    ready operands: uint32 [len(steps), len(DEPTH_DESC_FIELDS)].
+
+    A probe of T_t at ``idx`` becomes ``u = idx - lo; u < span ?
+    banks[base + u] : -1`` with ``base = off * 128``, ``lo = k0 * 128``,
+    ``span = nb * 128`` (unsigned arithmetic), the value of
+    ``probe_banks(banks, idx, off, nb, k0)``."""
+    rows = np.asarray(steps, np.int64).reshape(-1, 3)
+    out = np.stack([rows[:, 0], rows[:, 2], rows[:, 1]], 1) * LANE
+    out = np.ascontiguousarray(out.astype(np.uint32))
+    out.setflags(write=False)  # shared by every launch over these steps
+    return out
 
 
 def depth_scan_plain(staged: torch.Tensor, t: DepthKernelTables, *,
@@ -129,9 +151,13 @@ def _depth_scan_cuda(staged, t, *, input_size, emit, seg_bytes,
                      halo_bytes, shift, prev_total):
     global launches
     dev = staged.device
-    for name in ("s0", "packed", "steps"):
+    for name in ("s0", "packed"):
         check_operand(getattr(t, name), dev, name)
     check_operand(staged, dev, "staged")
+    check_staged(staged)
+    if len(t.desc) != t.n_steps - 1:
+        raise ValueError(f"desc: need {t.n_steps - 1} step rows, got "
+                         f"{len(t.desc)}")
     n_pos = staged.numel() - TILE
     bitmap = emit == "bitmap"
     if bitmap:
@@ -148,7 +174,7 @@ def _depth_scan_cuda(staged, t, *, input_size, emit, seg_bytes,
         stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().depth_scan(
         staged.data_ptr(), n_pos, int(input_size), t.s0.data_ptr(),
-        t.s0.shape[0], t.packed.data_ptr(), t.steps.data_ptr(), t.n_steps,
+        t.s0.shape[0], t.packed.data_ptr(), t.desc.ctypes.data, t.n_steps,
         int(t.dead_exit), seg_bytes, halo_bytes, int(bitmap),
         None if cnt is None else cnt.data_ptr(),
         None if bits is None else bits.data_ptr(),

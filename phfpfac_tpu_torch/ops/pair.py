@@ -27,7 +27,8 @@ master_kernel.cu:141-144 mid-pair cuts exactly); callers use the plan or
 depth kernel for that mode.
 
 Same output contract as ops.plan.  ``pair_scan`` is the kernel wrapper:
-a CUDA tensor launches ``csrc/pair_scan.cu``, a CPU tensor runs
+a CUDA tensor launches ``csrc/pair_scan.cu`` (warp tiles over
+pre-decoded steps, ``pair_descriptors``), a CPU tensor runs
 ``pair_scan_plain``.
 """
 
@@ -49,6 +50,7 @@ from phfpfac_tpu_torch.ops.plan import (
     CountScan,
     ShardScanner,
     check_operand,
+    check_staged,
     count_total,
     popcount32,
     probe_banks,
@@ -61,8 +63,12 @@ from phfpfac_tpu_torch.ops.staging import (
     to_device_bytes,
 )
 
-# one row of the step array the kernel reads (csrc/pair_scan.cu)
+# one row of the pair tables' step list (compile.pair)
 STEP_FIELDS = ("p_off", "p_nb", "p_k0", "s_off", "s_nb", "s_k0", "s_nibble")
+# one pair step's ready operands, as the tile kernel reads them (struct
+# Step of csrc/pair_scan.cu)
+PAIR_DESC_FIELDS = ("base", "lo", "span", "s_base", "s_lo", "s_span", "wsh",
+                    "smask", "fsh", "fmask", "amask")
 
 launches = 0  # CUDA kernel launches (the CPU plain path never counts)
 
@@ -74,9 +80,9 @@ class PairKernelTables:
     p0: torch.Tensor  # int32 [nb_p0, 128]
     packed: torch.Tensor  # int32 [NB, 128]
     side: torch.Tensor  # int32 [NS, 128]
-    steps: torch.Tensor  # int32 [n_pair_steps - 1, len(STEP_FIELDS)]
     code_of: torch.Tensor  # int32 [256]
-    step_rows: tuple  # the same rows on the host
+    step_rows: tuple  # host [n_pair_steps - 1] rows of STEP_FIELDS
+    desc: np.ndarray  # host uint32 [n_pair_steps - 1, 11]: pair_descriptors
     n_pair_steps: int
     cb: int
     disp_miss: int
@@ -105,13 +111,32 @@ class PairKernelTables:
 
         return cls(
             p0=dev(pt.p0_banks), packed=dev(pt.packed_banks),
-            side=dev(pt.side_banks),
-            steps=dev(np.asarray(rows, np.int32).reshape(
-                -1, len(STEP_FIELDS))),
-            code_of=dev(pt.code_of), step_rows=rows,
+            side=dev(pt.side_banks), code_of=dev(pt.code_of),
+            step_rows=rows, desc=pair_descriptors(rows),
             n_pair_steps=pt.n_pair_steps, cb=pt.code_bits,
             disp_miss=pt.disp_miss, dead_exit=dead_exit,
         )
+
+
+def pair_descriptors(rows) -> np.ndarray:
+    """The pair steps' rows (``STEP_FIELDS``) as the tile kernel's ready
+    operands: uint32 [len(rows), len(PAIR_DESC_FIELDS)].
+
+    A probe of a table at (off, nb, k0) becomes ``u = idx - lo; u < span
+    ? banks[base + u] : -1`` with ``base = off * 128``, ``lo = k0 * 128``,
+    ``span = nb * 128`` (unsigned arithmetic), for the pair table and the
+    side table alike; the side word of ``sidx`` is read at ``sidx >> wsh``
+    and its field ``(w >> ((sidx & smask) << fsh)) & fmask`` is held
+    against ``(a1 & amask) + 1``: 4 byte fields a word, or 8 nibbles
+    holding the code's low 3 bits."""
+    out = []
+    for po, pn, pk0, so, sn, sk0, nib in rows:
+        side = (3, 7, 2, 15, 7) if nib else (2, 3, 3, 255, 0xFFFFFFFF)
+        out.append([po * LANE, pk0 * LANE, pn * LANE, so * LANE, sk0 * LANE,
+                    sn * LANE, *side])
+    out = np.asarray(out, np.uint32).reshape(-1, len(PAIR_DESC_FIELDS))
+    out.setflags(write=False)  # shared by every launch over these steps
+    return out
 
 
 def pair_scan_plain(staged: torch.Tensor, t: PairKernelTables, *,
@@ -166,9 +191,13 @@ def _lib():
 def _pair_scan_cuda(staged, t, *, emit, shift):
     global launches
     dev = staged.device
-    for name in ("p0", "packed", "side", "steps"):
+    for name in ("p0", "packed", "side"):
         check_operand(getattr(t, name), dev, name)
     check_operand(staged, dev, "staged")
+    check_staged(staged)
+    if len(t.desc) != t.n_pair_steps - 1:
+        raise ValueError(f"desc: need {t.n_pair_steps - 1} step rows, got "
+                         f"{len(t.desc)}")
     n_pos = staged.numel() - TILE
     bitmap = emit == "bitmap"
     if bitmap:
@@ -182,7 +211,7 @@ def _pair_scan_cuda(staged, t, *, emit, shift):
         stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().pair_scan(
         staged.data_ptr(), n_pos, t.p0.data_ptr(), t.p0.shape[0],
-        t.packed.data_ptr(), t.side.data_ptr(), t.steps.data_ptr(),
+        t.packed.data_ptr(), t.side.data_ptr(), t.desc.ctypes.data,
         t.n_pair_steps, t.cb, t.disp_miss, int(t.dead_exit), int(bitmap),
         None if cnt is None else cnt.data_ptr(),
         None if bits is None else bits.data_ptr(),

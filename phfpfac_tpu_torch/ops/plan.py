@@ -343,12 +343,13 @@ def step_descriptors(spec: tuple, cb: int, p0_miss: int) -> np.ndarray:
 
 
 def check_staged(staged: torch.Tensor) -> None:
-    """The tile kernel's demands on the staged stream: a 16-byte aligned
-    view (its tiles arrive in 16-byte copies) of n_pos + TILE words, n_pos
-    a multiple of TILE (so a warp tile is whole and the last tile's
-    look-ahead of PLAN_HALO words stays inside the spare TILE)."""
+    """The tile kernels' demands on the staged stream (K1 here, K2 and K3
+    in ops.depth and ops.pair): a 16-byte aligned view (its tiles arrive
+    in 16-byte copies) of n_pos + TILE words, n_pos a multiple of TILE (so
+    a warp tile is whole and the last tile's look-ahead of 32 words stays
+    inside the spare TILE)."""
     if staged.data_ptr() % 16:
-        raise ValueError("staged: the plan kernel copies 16-byte chunks; "
+        raise ValueError("staged: the tile kernels copy 16-byte chunks; "
                          "need a 16-byte aligned view")
     n_pos = staged.numel() - TILE
     if n_pos < 0 or n_pos % TILE:

@@ -1,19 +1,26 @@
-"""Times the plan kernels of the checkout this file sits in: K1
-(``plan_scan``) and K1′ (``plan_scan_compact_a``) on ``chip_smoke.py``'s
-two dictionaries, per 16 MiB chunk: the 4 shards of the first
-``match_chunked`` window of a 64 MiB corpus made by ``chip_smoke.py``'s
-generators from seed 0.  Needs one CUDA GPU:
+"""Times the warp-tile kernels of the checkout this file sits in, per
+16 MiB chunk, each on its route's shape: K1 (``plan_scan``) and K1′
+(``plan_scan_compact_a``) on ``chip_smoke.py``'s two dictionaries (the 4
+shards of the first ``match_chunked`` window of a 64 MiB corpus made by
+``chip_smoke.py``'s generators from seed 0); K2 (``depth_scan``) on the
+depth path (clamav5k's 4 shards, a 6,144 B segment); K3 (``pair_scan``)
+on the pair path (lower50k's 4 shards, exact mode, 16 MiB).  Needs one
+CUDA GPU:
 
     python3 plan_times.py
 
 It times K1 in bitmap mode under the CLI's segment cut, in count mode and
 as a chain of 8 count scans; K1′ at ``chip_smoke``'s cut in bitmap and
-count mode; and K1's split, through the same wrapper on reduced tables:
-**no walk** (a p0 of misses and no steps: the staged read, one probe and
-the cnt / bits writes) and **prologue** (no steps).  Every timed shape is
-first held to its plain version (exact).  It also prints what ``nvcc
--Xptxas -v`` says of ``csrc/plan_scan.cu`` (registers, spills, shared
-memory per instantiation), and one JSON line.
+count mode; K2 in bitmap mode under the depth path's cut and exact, in
+count mode, as a chain of 8 and with ``dead_exit`` forced off; K3 in
+bitmap and count mode and with ``dead_exit`` off.  And each kernel's
+split, through the same wrapper on reduced tables: **no walk** (a first
+table of misses and no steps: the staged read, one probe and the cnt /
+bits writes), **prologue** (no steps) and, for K2 and K3, **step 1** (the
+first step only).  Every timed shape is first held to its plain version
+(exact).  It also prints what ``nvcc -Xptxas -v`` says of
+``csrc/plan_scan.cu``, ``depth_scan.cu`` and ``pair_scan.cu``
+(registers, spills, shared memory per instantiation), and one JSON line.
 
 It uses nothing but ``chip_smoke.py`` and the package beside it, so a copy
 of it placed in another checkout (an earlier commit unpacked with ``git
@@ -37,6 +44,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import chip_smoke as cs  # noqa: E402
 from phfpfac_tpu_torch import _build, compile_dictionary  # noqa: E402
+from phfpfac_tpu_torch.ops import depth as K2  # noqa: E402
+from phfpfac_tpu_torch.ops import pair as K3  # noqa: E402
 from phfpfac_tpu_torch.ops import plan as K1  # noqa: E402
 from phfpfac_tpu_torch.ops.staging import TILE  # noqa: E402
 from phfpfac_tpu_torch.parallel.matcher import Matcher  # noqa: E402
@@ -44,9 +53,13 @@ from phfpfac_tpu_torch.utils.config import PfacConfig  # noqa: E402
 from phfpfac_tpu_torch.utils.profile import cuda_ms  # noqa: E402
 
 
-def ptxas_report() -> list[str]:
-    """What ``nvcc -Xptxas -v`` says of this checkout's plan kernel."""
-    src = os.path.join(HERE, "phfpfac_tpu_torch", "csrc", "plan_scan.cu")
+KERNELS = ("plan_scan", "depth_scan", "pair_scan")
+DEPTH_SEG = 6144  # the depth path's segment: K1 takes powers of two only
+
+
+def ptxas_report(name: str) -> list[str]:
+    """What ``nvcc -Xptxas -v`` says of this checkout's ``csrc/<name>.cu``."""
+    src = os.path.join(HERE, "phfpfac_tpu_torch", "csrc", f"{name}.cu")
     with tempfile.TemporaryDirectory() as tmp:
         out = subprocess.run(
             [_build._nvcc(), *_build.FLAGS, "-Xptxas", "-v", "-o",
@@ -110,15 +123,114 @@ def time_shard(sc, window: bytes, device) -> dict:
         n_pos=n_pos, survivors=int(surv[2]), shards=1)
 
 
+def reduced_depth(dt, device):
+    """K2's split: the tables with no steps, with the first step only, and
+    with no steps and an s0 of misses."""
+    def keep(n):
+        return dataclasses.replace(dt, n_steps=1 + n, offs=dt.offs[:n],
+                                   nbs=dt.nbs[:n], k0s=dt.k0s[:n])
+
+    no_walk = dataclasses.replace(keep(0),
+                                  s0_banks=np.full_like(dt.s0_banks, -1))
+    return {what: K2.DepthKernelTables.from_depth(d, device)
+            for what, d in (("prologue", keep(0)), ("step1", keep(1)),
+                            ("no_walk", no_walk))}
+
+
+def time_depth(sc, window: bytes, device) -> dict:
+    """Every timing of one depth shard over ``window``."""
+    st, n = cs.scan_inputs(sc, window, device)
+    t, n_pos = sc.tables, st.numel() - TILE
+    off = dataclasses.replace(t, dead_exit=False)
+    seg = dict(input_size=n, seg_bytes=DEPTH_SEG, halo_bytes=cs.HALO)
+    exact = dict(input_size=n)
+    reduced = reduced_depth(sc.dt, device)
+    for what, tt, kw in (("bitmap", t, seg), ("exact", t, exact),
+                         ("dead_exit off", off, seg),
+                         *((w, tt, seg) for w, tt in reduced.items())):
+        same(K2.depth_scan(st, tt, **kw), K2.depth_scan_plain(st, tt, **kw),
+             f"K2 {what}")
+    same([K2.depth_scan(st, t, emit="count", **exact)],
+         [K2.depth_scan_plain(st, t, emit="count", **exact)], "K2 count")
+
+    def chain(scan=K2.depth_scan):
+        prev = None
+        for _ in range(cs.CHAIN_K):
+            prev = scan(st, t, emit="count", prev_total=prev, **exact)
+        return prev
+
+    same([chain()], [chain(K2.depth_scan_plain)], "K2 chain")
+    tb = cs.table_bytes(t)
+    return dict(
+        ms=cuda_ms(lambda: K2.depth_scan(st, t, **seg)),
+        exact_ms=cuda_ms(lambda: K2.depth_scan(st, t, **exact)),
+        count_ms=cuda_ms(lambda: K2.depth_scan(st, t, emit="count",
+                                               **exact)),
+        chain_ms_per_scan=cuda_ms(chain) / cs.CHAIN_K,
+        dead_exit_off_ms=cuda_ms(lambda: K2.depth_scan(st, off, **seg)),
+        **{f"{what}_ms": cuda_ms(lambda tt=tt: K2.depth_scan(st, tt, **seg))
+           for what, tt in reduced.items()},
+        exact_no_walk_ms=cuda_ms(
+            lambda: K2.depth_scan(st, reduced["no_walk"], **exact)),
+        bound_ms=cs.bound_ms(n_pos, tb, True),
+        count_bound_ms=cs.bound_ms(n_pos, tb, False),
+        n_pos=n_pos, shards=1, dead_exit=int(t.dead_exit))
+
+
+def reduced_pair(pt, device):
+    """K3's split, as K2's: no steps, the first pair step only, and no
+    steps over a p0 of misses."""
+    def keep(n):
+        return dataclasses.replace(
+            pt, n_pair_steps=1 + n, p_offs=pt.p_offs[:n], p_nbs=pt.p_nbs[:n],
+            p_k0s=pt.p_k0s[:n], s_offs=pt.s_offs[:n], s_nbs=pt.s_nbs[:n],
+            s_k0s=pt.s_k0s[:n], s_nibbles=tuple(pt.s_nibbles[:n]))
+
+    no_walk = dataclasses.replace(keep(0),
+                                  p0_banks=np.full_like(pt.p0_banks, -1))
+    return {what: K3.PairKernelTables.from_pair(p, device)
+            for what, p in (("prologue", keep(0)), ("step1", keep(1)),
+                            ("no_walk", no_walk))}
+
+
+def time_pair(sc, window: bytes, device) -> dict:
+    """Every timing of one pair shard over ``window`` (exact mode)."""
+    st, _n = cs.scan_inputs(sc, window, device)
+    t, n_pos = sc.tables, st.numel() - TILE
+    off = dataclasses.replace(t, dead_exit=False)
+    reduced = reduced_pair(sc.pt, device)
+    for what, tt in (("bitmap", t), ("dead_exit off", off),
+                     *reduced.items()):
+        same(K3.pair_scan(st, tt), K3.pair_scan_plain(st, tt), f"K3 {what}")
+    same([K3.pair_scan(st, t, emit="count", shift=1)],
+         [K3.pair_scan_plain(st, t, emit="count", shift=1)], "K3 count")
+    tb = cs.table_bytes(t)
+    return dict(
+        ms=cuda_ms(lambda: K3.pair_scan(st, t)),
+        count_ms=cuda_ms(lambda: K3.pair_scan(st, t, emit="count", shift=1)),
+        dead_exit_off_ms=cuda_ms(lambda: K3.pair_scan(st, off)),
+        **{f"{what}_ms": cuda_ms(lambda tt=tt: K3.pair_scan(st, tt))
+           for what, tt in reduced.items()},
+        bound_ms=cs.bound_ms(n_pos, tb, True),
+        count_bound_ms=cs.bound_ms(n_pos, tb, False),
+        n_pos=n_pos, shards=1, dead_exit=int(t.dead_exit))
+
+
+def add(total: dict, part: dict) -> None:
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("plan_times times CUDA kernels: no CUDA device",
               file=sys.stderr)
         return 1
     device = torch.device("cuda")
-    _build.build_all(("plan_scan",))
+    _build.build_all(KERNELS)
     rng = np.random.default_rng(0)
-    out = dict(root=HERE, nvidia_smi=cs.nvidia_smi(), ptxas=ptxas_report())
+    out = dict(root=HERE, nvidia_smi=cs.nvidia_smi(),
+               ptxas={k: ptxas_report(k) for k in KERNELS})
     printable = np.arange(32, 127, dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
         for name, pats, alphabet, escapes in (
@@ -135,12 +247,30 @@ def main() -> int:
             total: dict = {}
             for _kind, sc in cs.shard_kernels(matcher):
                 if isinstance(sc, K1.PlanShardScanner):
-                    for k, v in time_shard(sc, corpus[:cs.CHUNK],
-                                           device).items():
-                        total[k] = total.get(k, 0) + v
+                    add(total, time_shard(sc, corpus[:cs.CHUNK], device))
             out[name] = total
+            if name == "clamav5k":  # the depth path: K1 refuses 6,144 B
+                total = {}
+                for sh in compiled.shards:
+                    add(total, time_depth(K2.DepthShardScanner(
+                        sh, device=device), corpus[:cs.CHUNK], device))
+                out["depth_scan/clamav5k"] = total
             del matcher, compiled, corpus
             torch.cuda.empty_cache()
+        # the pair path: lower50k (chip_smoke's generators, seed 0 + 1),
+        # exact mode, its 16 MiB corpus
+        rng2 = np.random.default_rng(1)
+        pats = cs.make_stem_patterns(rng2, cs.LOWER)
+        corpus, _planted = cs.make_corpus(rng2, pats, cs.CHUNK, cs.LOWER,
+                                          plants=cs.PLANTS // 4)
+        files = cs.write_inputs(tmp, "lower50k", pats, corpus, False)
+        compiled = compile_dictionary(
+            files[0], PfacConfig(width=4096, num_shards=4, truncation="none"))
+        total = {}
+        for sh in compiled.shards:
+            add(total, time_pair(K3.PairShardScanner(sh, device=device),
+                                 corpus, device))
+        out["pair_scan/lower50k"] = total
     print(json.dumps(out), flush=True)
     return 0
 

@@ -8,6 +8,8 @@ imports nothing of JAX, so it also runs where JAX is not installed:
 Integer outputs, compared exactly (tolerance 0).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -681,3 +683,179 @@ def test_mesh_of_four_cells_on_one_card_equals_matcher(trunc, dev):
         assert np.array_equal(PallasMeshMatcher(comp, cfg, mesh).match(data),
                               want)
         assert K2.launches == 4
+
+
+# ---- K2 and K3 on warp tiles: tile edges, deep lists, dead_exit off,
+# mesh-cell views -------------------------------------------------------------
+
+DEPTH_GEOMS = [(0, 0), (64, 0), (100, 3), (6144, 512), (4096, 512)]
+
+
+def _walk_scanners(words, data, dev):
+    """(depth scanner, its staged bytes, pair scanner, its staged pairs,
+    input_size) of ``words`` over ``data``; the pair scanner is None where
+    the pair tables refuse the alphabet."""
+    from phfpfac_tpu_torch.compile.pair import PairUnsupported
+
+    cfg = PfacConfig(width=4096, num_shards=1)
+    sh = compile_patterns([Pattern(i + 1, w) for i, w in enumerate(words)],
+                          cfg).shards[0]
+    ms = padded_steps(sh.max_pat_len)
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    ds = K2.DepthShardScanner(sh, device=dev)
+    try:
+        ps = K3.PairShardScanner(sh, device=dev)
+    except PairUnsupported:
+        return ds, ds.stage(padded, len(data), ms), None, None, len(data)
+    return (ds, ds.stage(padded, len(data), ms), ps,
+            ps.stage(padded, len(data), ms), len(data))
+
+
+def _depth_held_to_plain(staged, t, n, geoms):
+    """Every mode of K2 on ``staged``, with the tables' dead_exit and with
+    it forced off, against the plain version: bitmap at each (seg, halo),
+    count with a shift, a chain of 8.  -> launches."""
+    calls = 0
+    for tt in (t, dataclasses.replace(t, dead_exit=False)):
+        for seg, halo in geoms:
+            kw = dict(input_size=n, seg_bytes=seg, halo_bytes=halo)
+            got = K2.depth_scan(staged, tt, **kw)
+            want = K2.depth_scan_plain(staged, tt, **kw)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            calls += 1
+        for shift in (0, 1):
+            assert int(K2.depth_scan(staged, tt, input_size=n, emit="count",
+                                     shift=shift)) == \
+                int(K2.depth_scan_plain(staged, tt, input_size=n,
+                                        emit="count", shift=shift))
+            calls += 1
+        prev = want_prev = None
+        for _ in range(8):  # a chain: each shift parity from the last total
+            prev = K2.depth_scan(staged, tt, input_size=n, emit="count",
+                                 prev_total=prev)
+            want_prev = K2.depth_scan_plain(staged, tt, input_size=n,
+                                            emit="count",
+                                            prev_total=want_prev)
+            assert int(prev) == int(want_prev)
+            calls += 1
+    return calls
+
+
+def _pair_held_to_plain(staged, t):
+    """K3 bitmap and count (shifts 0, 1, 5), with the tables' dead_exit
+    and with it forced off, against the plain version.  -> launches."""
+    calls = 0
+    for tt in (t, dataclasses.replace(t, dead_exit=False)):
+        got = K3.pair_scan(staged, tt)
+        want = K3.pair_scan_plain(staged, tt)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        calls += 1
+        for shift in (0, 1, 5):
+            assert int(K3.pair_scan(staged, tt, emit="count",
+                                    shift=shift)) == \
+                int(K3.pair_scan_plain(staged, tt, emit="count",
+                                       shift=shift))
+            calls += 1
+    return calls
+
+
+@pytest.mark.parametrize("n_pos", [1024, 2048 + 1024, 5 * 2048 + 256 * 4,
+                                   1 << 16])
+@pytest.mark.parametrize("name", ["dense", "s0", "s0x"])
+def test_walk_kernels_equal_plain_at_every_tile_geometry(name, n_pos, dev):
+    """Half a block tile, a block tile and a half, five and a half, many
+    block tiles: K2 at every segment geometry (6,144 and 100 + 3 among
+    them), K3 where the pair tables take the alphabet."""
+    words, data = _dictionary(name)
+    ds, dst, ps, pst, n = _walk_scanners(words, data[:n_pos], dev)
+    assert dst.numel() - 1024 == n_pos
+    before2, before3 = K2.launches, K3.launches
+    calls2 = _depth_held_to_plain(dst, ds.tables, n, DEPTH_GEOMS)
+    calls3 = 0
+    if ps is not None:
+        calls3 = _pair_held_to_plain(pst, ps.tables)
+    assert (ps is None) == (name == "s0x")
+    torch.cuda.synchronize()
+    assert K2.launches == before2 + calls2  # one launch per call
+    assert K3.launches == before3 + calls3
+
+
+def _deep_tiles():
+    """A 32-byte pattern (and its 32 rotations) over 8 KiB of that
+    pattern repeated, where every walker lives through every step, then
+    random text with the pattern planted once in every warp tile of 256
+    positions, at a random offset: a full list for 31 rounds, then one
+    deep walker a tile."""
+    rng = np.random.default_rng(6)
+    pat = bytes(rng.integers(97, 123, 32, dtype=np.uint8))
+    words = list(dict.fromkeys(pat[i:] + pat[:i] for i in range(32)))
+    words += [bytes(rng.integers(97, 123, int(rng.integers(2, 9)),
+                                 dtype=np.uint8)) for _ in range(300)]
+    data = bytearray(pat * 256 +
+                     bytes(rng.integers(97, 123, 1 << 16, dtype=np.uint8)))
+    plants = 0
+    for t0 in range(8192, len(data) - 256, 256):
+        at = t0 + int(rng.integers(0, 256 - 32))
+        data[at:at + 32] = pat
+        plants += 1
+    return words, bytes(data), plants
+
+
+def test_walk_kernels_on_deep_lists(dev):
+    words, data, plants = _deep_tiles()
+    ds, dst, ps, pst, n = _walk_scanners(words, data, dev)
+    assert ds.tables.n_steps == 32 and ps.tables.n_pair_steps == 16
+    before2, before3 = K2.launches, K3.launches
+    calls2 = _depth_held_to_plain(dst, ds.tables, n, DEPTH_GEOMS)
+    calls3 = _pair_held_to_plain(pst, ps.tables)
+    deep = 8192 - 31 + plants  # starts of a 32-byte match
+    for bits in (K2.depth_scan(dst, ds.tables, input_size=n)[1],
+                 K3.pair_scan(pst, ps.tables)[1]):
+        assert int(((bits[:n] >> 31) & 1).sum()) >= deep
+    torch.cuda.synchronize()
+    assert K2.launches == before2 + calls2 + 1
+    assert K3.launches == before3 + calls3 + 1
+
+
+@pytest.mark.parametrize("name", ["dense", "s0x"])
+def test_walk_kernels_on_mesh_cell_views(name, dev):
+    """K2 on PallasMeshMatcher's cell views of one staged stream
+    (parallel/mesh_pallas.py _cell_window: a block of positions plus its
+    1,024-position halo, at an offset), and K3 on row views of its staged
+    stream at an offset: each view against the plain version."""
+    from phfpfac_tpu_torch.parallel.mesh_pallas import _cell_window
+
+    words, data = _dictionary(name)
+    ds, dst, ps, pst, n = _walk_scanners(words, data, dev)
+    n_pos = dst.numel() - 1024
+    block = n_pos // 4
+    before2, before3 = K2.launches, K3.launches
+    calls2 = calls3 = 0
+    for d in range(4):
+        cell = _cell_window(dst, d, block, dev)
+        assert cell.data_ptr() % 16 == 0 and cell.numel() == block + 1024
+        calls2 += _depth_held_to_plain(cell, ds.tables, 2**31 - 1,
+                                       [(0, 0), (6144, 512)])
+    if ps is not None:
+        for rows in (8, 8 * 17):
+            calls3 += _pair_held_to_plain(pst[rows:], ps.tables)
+    torch.cuda.synchronize()
+    assert K2.launches == before2 + calls2
+    assert K3.launches == before3 + calls3
+
+
+def test_walk_kernels_refuse_a_misaligned_staged_view(dev):
+    words, data = _dictionary("dense")
+    ds, dst, ps, pst, n = _walk_scanners(words, data, dev)
+    flat = dst.reshape(-1)
+    view = flat[1:flat.numel() - 1023]
+    assert view.data_ptr() % 16
+    before2, before3 = K2.launches, K3.launches
+    with pytest.raises(ValueError, match="aligned"):
+        K2.depth_scan(view, ds.tables, input_size=n)
+    pflat = pst.reshape(-1)
+    pview = pflat[1:1 + 128 * 40].reshape(40, 128)
+    with pytest.raises(ValueError, match="aligned"):
+        K3.pair_scan(pview, ps.tables)
+    assert K2.launches == before2 and K3.launches == before3
