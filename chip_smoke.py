@@ -17,7 +17,7 @@ two probe kernels (parity and their sweeps), the device mesh with four
 cells on the one card (plan, compacted plan, turbo and depth meshes),
 two cooperating CLI processes over gloo, ``--profile`` and the
 multi-device dry run; then a soak of random dictionaries through the
-bitmap walks (``soak_phase``; ``--soak`` runs it alone); checks every
+scan kernels (``soak_phase``; ``--soak`` runs it alone); checks every
 output, times the kernels and prints one JSON line per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and exits
 non-zero.  Without a GPU, or without the package beside it, it exits
@@ -1440,7 +1440,7 @@ def gather_bounds(g_rows, dicts, lower, ct, phf_singles, device):
     return out
 
 
-# ---- the soak: random dictionaries through the bitmap walks -----------------
+# ---- the soak: random dictionaries through the scan kernels ------------------
 
 # Everything the soak reads is here: its seeds, its sizes and its
 # generators (soak_case).  ``python3 chip_smoke.py --soak`` runs it alone.
@@ -1613,12 +1613,104 @@ def soak_pair(ps, corpus, device, what) -> int:
     return checks
 
 
+def soak_phf(compiled, corpus, seed, device, what):
+    """K5 over every shard whose tables ``PallasTables`` accepts and K4
+    on each: bitmap mode at every ``SOAK_DEPTH_GEOMS`` geometry where the
+    padded step count allows it (K5's rows equal to K4's bitmaps), count
+    mode with shift 0 and 1 (up to 128 steps), ``dead_exit`` forced off,
+    and a window viewed at an odd byte offset, against the plain
+    versions.  -> (K4 checks, K5 checks, shards refused)."""
+    from phfpfac_tpu_torch.ops import scan as K4
+    from phfpfac_tpu_torch.ops.common import padded_steps
+
+    pts, refused = [], 0
+    for sh in compiled.shards:
+        try:
+            pts.append(K4.PallasTables(sh))
+        except K4.PhfUnsupported:
+            refused += 1
+    if not pts:
+        return 0, 0, refused
+    ms = padded_steps(max(pt.max_pat_len for pt in pts))
+    if ms > K4.MAX_COUNT_STEPS:
+        return 0, 0, refused + len(pts)
+    multi = K4.PhfKernelTables.from_tables(pts, device)
+    singles = [K4.PhfKernelTables.from_tables([pt], device) for pt in pts]
+    data = padded_window(corpus, ms, device)
+    # the same bytes at an odd offset from a 16-byte boundary, random
+    # bytes around them
+    k = 1 + 2 * (seed % 8)
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.integers(0, 256, data.numel() + 32,
+                                        dtype=np.uint8)).to(device)
+    view = buf[k:k + data.numel()]
+    view.copy_(data)
+    check(view.data_ptr() % 16 == k, f"{what}: view offset")
+    n = len(corpus)
+    kw = dict(input_size=n, max_steps=ms)
+    c4 = c5 = 0
+    bitmap = ms <= K4.MAX_BITMAP_STEPS
+    if bitmap:
+        for seg, halo in SOAK_DEPTH_GEOMS:
+            g = dict(seg_bytes=seg, halo_bytes=halo, **kw)
+            w = f"{what}: K5 seg={seg}+{halo}"
+            got5 = K4.phf_scan_multi(data, multi, **g)
+            agree("phf_scan_multi", got5,
+                  K4.phf_scan_multi_plain(data, multi, **g), w)
+            c5 += 1
+            for si, t in enumerate(singles):
+                got = K4.phf_scan(data, t, **g)
+                agree("phf_scan", got, K4.phf_scan_plain(data, t, **g),
+                      f"{what}: K4 shard {si} seg={seg}+{halo}")
+                check(torch.equal(got[1], got5[1][si]),
+                      f"{w}: K5's row {si} != K4's bitmap")
+                c4 += 1
+    for shift in (0, 1):
+        agree("phf_scan_multi",
+              [K4.phf_scan_multi(data, multi, emit="count", shift=shift,
+                                 **kw)],
+              [K4.phf_scan_multi_plain(data, multi, emit="count",
+                                       shift=shift, **kw)],
+              f"{what}: K5 count shift={shift}")
+        c5 += 1
+        for si, t in enumerate(singles):
+            agree("phf_scan",
+                  [K4.phf_scan(data, t, emit="count", shift=shift, **kw)],
+                  [K4.phf_scan_plain(data, t, emit="count", shift=shift,
+                                     **kw)],
+                  f"{what}: K4 shard {si} count shift={shift}")
+            c4 += 1
+    # dead_exit forced off, and the window at an odd offset (both under
+    # the soak's segment cut, bitmap mode where it fits)
+    emit = dict() if bitmap else dict(emit="count", shift=1)
+    seg = dict(seg_bytes=SOAK_SEG[0], halo_bytes=SOAK_SEG[1], **kw, **emit)
+    off = dataclasses.replace(multi, dead_exit=False)
+    for d, tt, w in ((data, off, "dead_exit off"),
+                     (view, multi, f"a view at offset {k}")):
+        got = K4.phf_scan_multi(d, tt, **seg)
+        agree("phf_scan_multi", got if bitmap else [got],
+              K4.phf_scan_multi_plain(data, tt, **seg) if bitmap
+              else [K4.phf_scan_multi_plain(data, tt, **seg)],
+              f"{what}: K5 {w}")
+        c5 += 1
+    one = singles[0]
+    for d, tt, w in ((data, dataclasses.replace(one, dead_exit=False),
+                      "dead_exit off"), (view, one, f"a view at {k}")):
+        got = K4.phf_scan(d, tt, **seg)
+        agree("phf_scan", got if bitmap else [got],
+              K4.phf_scan_plain(data, tt, **seg) if bitmap
+              else [K4.phf_scan_plain(data, tt, **seg)],
+              f"{what}: K4 shard 0 {w}")
+        c4 += 1
+    return c4, c5, refused
+
+
 def soak_phase(device) -> dict:
     """Over SOAK_SEEDS seeds (soak_case): K1, K1′ + K6, K2 and K3 on every
-    shard, bit for bit against their plain versions, and
-    ``Matcher.match_chunked`` on the card under a 512 + 64 B segment cut
-    and in exact mode against the host oracle.  The first mismatch fails
-    the run."""
+    shard, K5 over the shards and K4 on each (``soak_phf``), bit for bit
+    against their plain versions, and ``Matcher.match_chunked`` on the
+    card under a 512 + 64 B segment cut and in exact mode against the
+    host oracle.  The first mismatch fails the run."""
     from phfpfac_tpu_torch.ops import depth as K2
     from phfpfac_tpu_torch.ops import pair as K3
     from phfpfac_tpu_torch.ops import plan as K1
@@ -1627,8 +1719,10 @@ def soak_phase(device) -> dict:
     from phfpfac_tpu_torch.utils.config import PfacConfig
 
     t0 = time.perf_counter()
-    checks = dict(plan_scan=0, depth_scan=0, pair_scan=0, end_to_end=0)
-    p0_modes, kinds, refused = set(), [], dict(plan=0, depth=0, pair=0)
+    checks = dict(plan_scan=0, depth_scan=0, pair_scan=0, phf_scan=0,
+                  phf_scan_multi=0, end_to_end=0)
+    p0_modes, kinds = set(), []
+    refused = dict(plan=0, depth=0, pair=0, phf=0)
     cfgs = {"segment": PfacConfig(width=4096, num_shards=2,
                                   truncation="segment",
                                   segment_bytes=SOAK_SEG[0],
@@ -1678,6 +1772,11 @@ def soak_phase(device) -> dict:
                                                           what)
                     if plan is not None:
                         p0_modes.add(plan.tables.p0_mode)
+            c4, c5, r = soak_phf(compiled, corpus, seed, device,
+                                 f"soak seed {seed} ({kind})")
+            checks["phf_scan"] += c4
+            checks["phf_scan_multi"] += c5
+            refused["phf"] += r
     check(p0_modes == {"dense", "s0", "s0x"},
           f"soak: the generators reached the prologues {sorted(p0_modes)}")
     check(all(checks.values()), f"soak: a kernel went unchecked {checks}")
@@ -2365,7 +2464,7 @@ def main() -> int:
         emit("dryrun", cells=cell_devices(),
              seconds=time.perf_counter() - t0, **dry)
 
-    # ---- 4i. the soak: random dictionaries through the bitmap walks ----
+    # ---- 4i. the soak: random dictionaries through the scan kernels ----
     emit("soak", **soak_phase(device))
 
     # ---- 5. times ----

@@ -1,6 +1,8 @@
-// Warp tiles: the skeleton the stride-1 depth walk (depth_scan.cu, K2)
-// and the stride-2 pair walk (pair_scan.cu, K3) share.  The plan kernel
-// (plan_scan.cu, K1) follows the same design with its own copy.
+// Warp tiles: the skeleton the stride-1 depth walk (depth_scan.cu, K2),
+// the stride-2 pair walk (pair_scan.cu, K3) and the banked-PHF walks
+// (phf_scan.cu, K4 and K5, which stage raw bytes with a loader of their
+// own) share.  The plan kernel (plan_scan.cu, K1) follows the same design
+// with its own copy.
 //
 // A warp walks kWarpTile positions at a time (kPer a lane) with shared
 // memory of its own: a two-stage ring of the tile's staged words plus

@@ -27,8 +27,11 @@ count mode the int64 total over positions ``>= shift``.  The multi scan
 sums ``cnt`` over shards and returns one bitmap row per shard.
 
 ``phf_scan`` / ``phf_scan_multi`` are the kernel wrappers: a CUDA
-tensor launches ``csrc/phf_scan.cu``, a CPU tensor runs the plain
-versions, the same walk in int32 torch ops.
+tensor launches ``csrc/phf_scan.cu`` (warp tiles over the raw bytes; K4
+is its one-shard instance), a CPU tensor runs the plain versions, the
+same walk in int32 torch ops.  The kernel reads each shard's tables as
+pre-decoded descriptors (``phf_descriptors``), built once with the
+tables.
 """
 
 from __future__ import annotations
@@ -47,11 +50,16 @@ from phfpfac_tpu_torch.ops.turbo import TurboTables, build_turbo_tables
 
 MAX_BITMAP_STEPS = 32
 MAX_COUNT_STEPS = LANE  # the count scanners' step limit
-MAX_SHARDS = 64  # shard specs the multi kernel holds in shared memory
+MAX_SHARDS = 64  # shard descriptors one launch takes by value
 SENTINEL_R = -(2**30)
-# one row of the spec array the kernels read (csrc/phf_scan.cu)
+# one shard's geometry, as the plain versions read it
 SPEC_FIELDS = ("s0_off", "nb_s0", "r_off", "nb_r", "p_off", "nb_p",
                "width_bit", "row_bits", "dead", "num_final")
+# one shard's ready operands, as the tile kernel reads them (struct Desc
+# in csrc/phf_scan.cu)
+PHF_DESC_FIELDS = ("s0_base", "s0_span", "r_base", "r_span", "p_base",
+                   "p_span", "wb", "rb", "wm1", "row_mask", "dead",
+                   "num_final")
 
 launches = 0  # phf_scan CUDA launches (the CPU plain path never counts)
 launches_multi = 0  # phf_scan_multi CUDA launches
@@ -127,11 +135,14 @@ class PhfKernelTables:
     s0: torch.Tensor  # int32 [sum nb_s0, 128]
     r: torch.Tensor  # int32 [sum nb_r, 128]
     packed: torch.Tensor  # int32 [sum nb_p, 128]
-    specs: torch.Tensor  # int32 [n_shards, len(SPEC_FIELDS)]
-    spec_rows: tuple  # the same rows on the host
+    spec_rows: tuple  # per shard, the SPEC_FIELDS row (host)
+    desc: np.ndarray  # host uint32 [n_shards, 12]: phf_descriptors
     # the DEAD state's 256 keys all read sentinel rows of r in every
     # shard, so a dead walker may stop: checked here, never assumed
     dead_exit: bool
+    # every state a walker of any shard can hold fits in 24 bits, so a
+    # live walker is one word (state << 8) | offset: checked here too
+    one_word: bool
 
     @property
     def n_shards(self) -> int:
@@ -148,10 +159,15 @@ class PhfKernelTables:
             keys = (pt.dead << 8) + np.arange(256, dtype=np.int64)
             dead_rows = keys >> pt.width_bit
             r_flat = pt.r.ravel()
+            # a sentinel row sends the probe of packed outside its banks
+            # (-1), which a row equal to row_mask would take for a hit;
+            # and a stopped walker must not be a match
             dead_exit &= bool(
                 dead_rows.max() < len(r_flat)
                 and (r_flat[dead_rows] == SENTINEL_R).all()
                 and (pt.dead << 8) + 255 < 2**31
+                and dead_rows.max() < (1 << pt.row_bits) - 1
+                and pt.dead >= pt.num_final
             )
 
         def dev(a):
@@ -162,10 +178,44 @@ class PhfKernelTables:
             s0=dev(np.concatenate([pt.s0 for pt in pts])),
             r=dev(np.concatenate([pt.r for pt in pts])),
             packed=dev(np.concatenate([pt.packed for pt in pts])),
-            specs=dev(np.asarray(rows, np.int32).reshape(
-                -1, len(SPEC_FIELDS))),
-            spec_rows=tuple(rows), dead_exit=dead_exit,
+            spec_rows=tuple(rows), desc=phf_descriptors(rows),
+            dead_exit=dead_exit,
+            one_word=all(states_fit_24(pt) for pt in pts),
         )
+
+
+def phf_descriptors(rows) -> np.ndarray:
+    """The shards' SPEC_FIELDS rows as the tile kernel's ready operands:
+    uint32 [len(rows), len(PHF_DESC_FIELDS)].
+
+    A probe of a table at ``idx`` becomes ``idx < span ? banks[base +
+    idx] : -1`` in unsigned arithmetic, with ``base = off * 128`` and
+    ``span = nb * 128``: the value of ``_lut(banks, idx, off, nb)``.
+    ``wm1`` and ``row_mask`` are ``(1 << width_bit) - 1`` and
+    ``(1 << row_bits) - 1``."""
+    out = [(s0_off * LANE, nb_s0 * LANE, r_off * LANE, nb_r * LANE,
+            p_off * LANE, nb_p * LANE, wb, rb, (1 << wb) - 1, (1 << rb) - 1,
+            dead, nf)
+           for s0_off, nb_s0, r_off, nb_r, p_off, nb_p, wb, rb, dead, nf
+           in rows]
+    arr = np.asarray(out, np.int64).reshape(-1, len(PHF_DESC_FIELDS))
+    arr = np.ascontiguousarray((arr & 0xFFFFFFFF).astype(np.uint32))
+    arr.setflags(write=False)  # shared by every launch over these tables
+    return arr
+
+
+def states_fit_24(pt: "PallasTables") -> bool:
+    """Whether every state a walker over ``pt`` can hold is below 2^24:
+    an s0 entry (a byte past s0's banks reads -1), DEAD, or ``g >>
+    row_bits`` of a packed entry or of the -1 a probe outside the banks
+    reads."""
+    u32 = np.uint32
+    states = [pt.dead, 0xFFFFFFFF >> pt.row_bits,
+              int(pt.packed.view(u32).max()) >> pt.row_bits,
+              int(pt.s0.view(u32).max())]
+    if pt.s0.size < 256:
+        states.append(0xFFFFFFFF)
+    return max(states) < 1 << 24
 
 
 # ---- plain torch versions ----------------------------------------------------
@@ -268,15 +318,12 @@ def _lib():
     lib = _build.load("phf_scan")
     if lib.phf_scan.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # data, n_pos, input_size, max_steps, s0, r, packed, specs,
-        # [n_shards,] dead_exit, seg, halo, emit_bitmap, cnt, bits, shift,
-        # total, stream
-        lib.phf_scan.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, p, p,
-                                 i, p, p]
+        # data, n_pos, input_size, max_steps, s0, r, packed, desc,
+        # n_shards, dead_exit, one_word, seg, halo, emit_bitmap, cnt, bits,
+        # shift, total, stream
+        lib.phf_scan.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i, i, i,
+                                 p, p, i, p, p]
         lib.phf_scan.restype = i
-        lib.phf_scan_multi.argtypes = [p, i, i, i, p, p, p, p, i, i, i, i,
-                                       i, p, p, i, p, p]
-        lib.phf_scan_multi.restype = i
     return lib
 
 
@@ -311,8 +358,11 @@ def _scan_cuda(data, t, *, multi, input_size, max_steps, emit, seg_bytes,
                halo_bytes, shift):
     global launches, launches_multi
     dev = data.device
-    for name in ("s0", "r", "packed", "specs"):
+    for name in ("s0", "r", "packed"):
         check_operand(getattr(t, name), dev, name)
+    if t.desc.shape != (t.n_shards, len(PHF_DESC_FIELDS)):
+        raise ValueError(f"desc: need {t.n_shards} shard rows, got "
+                         f"{t.desc.shape}")
     n_pos = data.shape[0] - max_steps
     bitmap = emit == "bitmap"
     if bitmap:
@@ -325,18 +375,14 @@ def _scan_cuda(data, t, *, multi, input_size, max_steps, emit, seg_bytes,
         total = torch.zeros(1, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-    lib = _lib()
-    head = (data.data_ptr(), n_pos, int(input_size), max_steps,
-            t.s0.data_ptr(), t.r.data_ptr(), t.packed.data_ptr(),
-            t.specs.data_ptr())
-    tail = (int(t.dead_exit), seg_bytes, halo_bytes, int(bitmap),
-            None if cnt is None else cnt.data_ptr(),
-            None if bits is None else bits.data_ptr(), int(shift),
-            None if total is None else total.data_ptr(), stream)
-    if multi:
-        err = lib.phf_scan_multi(*head, t.n_shards, *tail)
-    else:
-        err = lib.phf_scan(*head, *tail)
+    err = _lib().phf_scan(
+        data.data_ptr(), n_pos, int(input_size), max_steps,
+        t.s0.data_ptr(), t.r.data_ptr(), t.packed.data_ptr(),
+        t.desc.ctypes.data, t.n_shards, int(t.dead_exit), int(t.one_word),
+        seg_bytes, halo_bytes, int(bitmap),
+        None if cnt is None else cnt.data_ptr(),
+        None if bits is None else bits.data_ptr(), int(shift),
+        None if total is None else total.data_ptr(), stream)
     if err:
         name = "phf_scan_multi" if multi else "phf_scan"
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")

@@ -4,23 +4,31 @@
 shards of the first ``match_chunked`` window of a 64 MiB corpus made by
 ``chip_smoke.py``'s generators from seed 0); K2 (``depth_scan``) on the
 depth path (clamav5k's 4 shards, a 6,144 B segment); K3 (``pair_scan``)
-on the pair path (lower50k's 4 shards, exact mode, 16 MiB).  Needs one
-CUDA GPU:
+on the pair path (lower50k's 4 shards, exact mode, 16 MiB); K5
+(``phf_scan_multi``, one launch over clamav5k's 4 shards) and K4
+(``phf_scan``, one launch a shard) on the phf path (clamav5k's first
+16 MiB window, the CLI's 4,096 + 512 B cut).  Needs one CUDA GPU:
 
-    python3 plan_times.py
+    python3 plan_times.py                     # every kernel
+    python3 plan_times.py phf_scan depth_scan  # only these
 
 It times K1 in bitmap mode under the CLI's segment cut, in count mode and
 as a chain of 8 count scans; K1′ at ``chip_smoke``'s cut in bitmap and
 count mode; K2 in bitmap mode under the depth path's cut and exact, in
 count mode, as a chain of 8 and with ``dead_exit`` forced off; K3 in
-bitmap and count mode and with ``dead_exit`` off.  And each kernel's
-split, through the same wrapper on reduced tables: **no walk** (a first
-table of misses and no steps: the staged read, one probe and the cnt /
-bits writes), **prologue** (no steps) and, for K2 and K3, **step 1** (the
-first step only).  Every timed shape is first held to its plain version
-(exact).  It also prints what ``nvcc -Xptxas -v`` says of
-``csrc/plan_scan.cu``, ``depth_scan.cu`` and ``pair_scan.cu``
-(registers, spills, shared memory per instantiation), and one JSON line.
+bitmap and count mode and with ``dead_exit`` off; K4 and K5 in bitmap
+mode under the cut and exact, in count mode and with ``dead_exit`` off.
+And each kernel's split, through the same wrapper on reduced tables: **no
+walk** (a first table of misses and no steps: the staged read, one probe
+and the cnt / bits writes; for K4 and K5 an s0 of DEAD), **prologue** (no
+steps; K4 and K5: one step) and, for K2-K5, **step 1** (the first step
+only).  Every timed shape is first held to its plain version (exact).
+K4's and K5's shapes are also timed by the profiler's device time of
+their kernels (``utils/profile.py::trace``), the field ``*_device_ms``
+beside each ``cuda_ms`` time.  It also prints what ``nvcc -Xptxas -v``
+says of ``csrc/plan_scan.cu``, ``depth_scan.cu``, ``pair_scan.cu`` and
+``phf_scan.cu`` (registers, spills, shared memory per instantiation), and
+one JSON line.
 
 It uses nothing but ``chip_smoke.py`` and the package beside it, so a copy
 of it placed in another checkout (an earlier commit unpacked with ``git
@@ -30,6 +38,7 @@ same way; run the two in turns, A B B A, in one session on the card.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -47,13 +56,15 @@ from phfpfac_tpu_torch import _build, compile_dictionary  # noqa: E402
 from phfpfac_tpu_torch.ops import depth as K2  # noqa: E402
 from phfpfac_tpu_torch.ops import pair as K3  # noqa: E402
 from phfpfac_tpu_torch.ops import plan as K1  # noqa: E402
+from phfpfac_tpu_torch.ops import scan as K4  # noqa: E402
+from phfpfac_tpu_torch.ops.common import padded_steps  # noqa: E402
 from phfpfac_tpu_torch.ops.staging import TILE  # noqa: E402
 from phfpfac_tpu_torch.parallel.matcher import Matcher  # noqa: E402
 from phfpfac_tpu_torch.utils.config import PfacConfig  # noqa: E402
-from phfpfac_tpu_torch.utils.profile import cuda_ms  # noqa: E402
+from phfpfac_tpu_torch.utils.profile import cuda_ms, trace  # noqa: E402
 
 
-KERNELS = ("plan_scan", "depth_scan", "pair_scan")
+KERNELS = ("plan_scan", "depth_scan", "pair_scan", "phf_scan")
 DEPTH_SEG = 6144  # the depth path's segment: K1 takes powers of two only
 
 
@@ -216,9 +227,98 @@ def time_pair(sc, window: bytes, device) -> dict:
         n_pos=n_pos, shards=1, dead_exit=int(t.dead_exit))
 
 
+def device_ms(fn, name: str, reps: int = 5) -> float | None:
+    """Mean device time of the kernels named ``name`` that ``fn``
+    launches, in ms, from a ``torch.profiler`` trace of ``reps`` calls
+    after a warm-up (None where the trace shows no device time)."""
+    fn()
+    torch.cuda.synchronize()
+    with trace() as mt:
+        for _ in range(reps):
+            fn()
+    secs = sum(v for k, v in mt.device_seconds_by_name().items()
+               if name in k)
+    return 1e3 * secs / reps if secs else None
+
+
+def reduced_phf(pts, device):
+    """K4's and K5's no-walk tables: s0 all DEAD, so every walker dies
+    before its first step (the prologue and step 1 shapes are the
+    tables as they are at one and two steps)."""
+    dead = []
+    for pt in pts:
+        q = copy.copy(pt)
+        q.s0 = np.full_like(pt.s0, pt.dead)
+        dead.append(q)
+    return dead
+
+
+def time_phf(compiled, window: bytes, device) -> dict:
+    """K5 over every shard (one launch) and K4 summed over the shards, on
+    the phf path's window: every mode and the split, by ``cuda_ms`` and
+    by the profiler's device time."""
+    pts = [K4.PallasTables(sh) for sh in compiled.shards]
+    ms = padded_steps(compiled.max_pat_len)
+    data = cs.padded_window(window, ms, device)
+    n, n_pos = len(window), data.numel() - ms
+    seg = dict(seg_bytes=cs.SEG, halo_bytes=cs.HALO)
+    no_walk = reduced_phf(pts, device)
+    out = {}
+    for key, kernel, plain, groups in (
+            ("phf_scan_multi/clamav5k", K4.phf_scan_multi,
+             K4.phf_scan_multi_plain, [pts]),
+            ("phf_scan/clamav5k", K4.phf_scan, K4.phf_scan_plain,
+             [[pt] for pt in pts])):
+        total: dict = {}
+        for group in groups:
+            t = K4.PhfKernelTables.from_tables(group, device)
+            dead = K4.PhfKernelTables.from_tables(
+                [no_walk[pts.index(pt)] for pt in group], device)
+            off = dataclasses.replace(t, dead_exit=False)
+            shapes = {  # name -> (data, tables, keyword arguments)
+                "": (data, t, dict(max_steps=ms, **seg)),
+                "exact_": (data, t, dict(max_steps=ms)),
+                "count_": (data, t, dict(max_steps=ms, emit="count")),
+                "dead_exit_off_": (data, off, dict(max_steps=ms, **seg)),
+                "no_walk_": (data, dead, dict(max_steps=ms, **seg)),
+                "prologue_": (data[:n_pos + 1], t,
+                              dict(max_steps=1, **seg)),
+                "step1_": (data[:n_pos + 2], t, dict(max_steps=2, **seg)),
+            }
+            part = {}
+            for what, (d, tt, kw) in shapes.items():
+                got = kernel(d, tt, input_size=n, **kw)
+                want = plain(d, tt, input_size=n, **kw)
+                same(got if isinstance(got, tuple) else [got],
+                     want if isinstance(want, tuple) else [want],
+                     f"{key} {what or 'bitmap'}")
+
+                def run(d=d, tt=tt, kw=kw):
+                    return kernel(d, tt, input_size=n, **kw)
+
+                part[f"{what}ms"] = cuda_ms(run)
+                part[f"{what}device_ms"] = device_ms(run, "phf_scan")
+            tb = cs.table_bytes(t)
+            rows = t.n_shards if kernel is K4.phf_scan_multi else 1
+            part["bound_ms"] = cs.bound_ms(n_pos, tb, True, read_b=1,
+                                           bitmap_rows=rows)
+            part["count_bound_ms"] = cs.bound_ms(n_pos, tb, False, read_b=1)
+            part["one_word"] = getattr(t, "one_word", None)  # older checkouts: none
+            part["dead_exit"] = int(t.dead_exit)
+            part["launches"] = 1
+            add(total, part)
+        total["n_pos"] = n_pos
+        total["max_steps"] = ms
+        out[key] = total
+    return out
+
+
 def add(total: dict, part: dict) -> None:
+    """Sum ``part`` into ``total`` key by key; None (not measured)
+    stays None."""
     for k, v in part.items():
-        total[k] = total.get(k, 0) + v
+        have = total.get(k, 0)
+        total[k] = None if v is None or have is None else have + v
 
 
 def main() -> int:
@@ -226,51 +326,72 @@ def main() -> int:
         print("plan_times times CUDA kernels: no CUDA device",
               file=sys.stderr)
         return 1
+    want = set(sys.argv[1:]) or set(KERNELS)
+    if want - set(KERNELS):
+        print(f"plan_times: unknown kernels {sorted(want - set(KERNELS))}; "
+              f"choose from {KERNELS}", file=sys.stderr)
+        return 2
+    kernels = [k for k in KERNELS if k in want]
     device = torch.device("cuda")
-    _build.build_all(KERNELS)
+    _build.build_all(kernels)
     rng = np.random.default_rng(0)
     out = dict(root=HERE, nvidia_smi=cs.nvidia_smi(),
-               ptxas={k: ptxas_report(k) for k in KERNELS})
+               ptxas={k: ptxas_report(k) for k in kernels})
     printable = np.arange(32, 127, dtype=np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, pats, alphabet, escapes in (
-            ("ascii50k", cs.make_ascii50k(rng), printable, False),
-            ("clamav5k", cs.make_signatures(5000, seed=7), None, True),
+        for name, make, alphabet, escapes in (
+            ("ascii50k", cs.make_ascii50k, printable, False),
+            ("clamav5k", lambda _rng: cs.make_signatures(5000, seed=7), None,
+             True),
         ):
+            # the generators run whatever is timed, so that every
+            # selection sees the same corpora
+            pats = make(rng)
             corpus, _planted = cs.make_corpus(rng, pats, 64 * cs.MIB,
                                               alphabet)
+            if name == "ascii50k" and "plan_scan" not in want:
+                continue
             files = cs.write_inputs(tmp, name, pats, corpus, escapes)
             cfg = PfacConfig(width=4096, num_shards=4, truncation="segment")
             compiled = compile_dictionary(files[0], cfg, escapes=escapes)
-            matcher = Matcher(compiled, cfg, device=device,
-                              train=corpus[:cs.MIB])
-            total: dict = {}
-            for _kind, sc in cs.shard_kernels(matcher):
-                if isinstance(sc, K1.PlanShardScanner):
-                    add(total, time_shard(sc, corpus[:cs.CHUNK], device))
-            out[name] = total
-            if name == "clamav5k":  # the depth path: K1 refuses 6,144 B
+            if "plan_scan" in want:
+                matcher = Matcher(compiled, cfg, device=device,
+                                  train=corpus[:cs.MIB])
+                total: dict = {}
+                for _kind, sc in cs.shard_kernels(matcher):
+                    if isinstance(sc, K1.PlanShardScanner):
+                        add(total, time_shard(sc, corpus[:cs.CHUNK],
+                                              device))
+                out[name] = total
+                del matcher
+            if name == "clamav5k" and "depth_scan" in want:
+                # the depth path: K1 refuses 6,144 B
                 total = {}
                 for sh in compiled.shards:
                     add(total, time_depth(K2.DepthShardScanner(
                         sh, device=device), corpus[:cs.CHUNK], device))
                 out["depth_scan/clamav5k"] = total
-            del matcher, compiled, corpus
+            if name == "clamav5k" and "phf_scan" in want:
+                out.update(time_phf(compiled, corpus[:cs.CHUNK], device))
+            del compiled, corpus
             torch.cuda.empty_cache()
-        # the pair path: lower50k (chip_smoke's generators, seed 0 + 1),
-        # exact mode, its 16 MiB corpus
-        rng2 = np.random.default_rng(1)
-        pats = cs.make_stem_patterns(rng2, cs.LOWER)
-        corpus, _planted = cs.make_corpus(rng2, pats, cs.CHUNK, cs.LOWER,
-                                          plants=cs.PLANTS // 4)
-        files = cs.write_inputs(tmp, "lower50k", pats, corpus, False)
-        compiled = compile_dictionary(
-            files[0], PfacConfig(width=4096, num_shards=4, truncation="none"))
-        total = {}
-        for sh in compiled.shards:
-            add(total, time_pair(K3.PairShardScanner(sh, device=device),
-                                 corpus, device))
-        out["pair_scan/lower50k"] = total
+        if "pair_scan" in want:
+            # the pair path: lower50k (chip_smoke's generators, seed 0 +
+            # 1), exact mode, its 16 MiB corpus
+            rng2 = np.random.default_rng(1)
+            pats = cs.make_stem_patterns(rng2, cs.LOWER)
+            corpus, _planted = cs.make_corpus(rng2, pats, cs.CHUNK,
+                                              cs.LOWER,
+                                              plants=cs.PLANTS // 4)
+            files = cs.write_inputs(tmp, "lower50k", pats, corpus, False)
+            compiled = compile_dictionary(
+                files[0], PfacConfig(width=4096, num_shards=4,
+                                     truncation="none"))
+            total = {}
+            for sh in compiled.shards:
+                add(total, time_pair(K3.PairShardScanner(sh, device=device),
+                                     corpus, device))
+            out["pair_scan/lower50k"] = total
     print(json.dumps(out), flush=True)
     return 0
 

@@ -859,3 +859,185 @@ def test_walk_kernels_refuse_a_misaligned_staged_view(dev):
     with pytest.raises(ValueError, match="aligned"):
         K3.pair_scan(pview, ps.tables)
     assert K2.launches == before2 and K3.launches == before3
+
+
+PHF_GEOMS = [(0, 0), (100, 3), (4096, 512), (6144, 512)]
+
+
+def _phf_tables(words, dev, shards, width=4096):
+    """(K5's tables over every shard, K4's tables per shard, the padded
+    step count) of ``words`` in ``shards`` shards."""
+    compiled = compile_patterns(
+        [Pattern(i + 1, w) for i, w in enumerate(words)],
+        PfacConfig(width=width, num_shards=shards))
+    pts = [K4.PallasTables(sh) for sh in compiled.shards]
+    return (K4.PhfKernelTables.from_tables(pts, dev),
+            [K4.PhfKernelTables.from_tables([pt], dev) for pt in pts],
+            padded_steps(compiled.max_pat_len))
+
+
+def _phf_forms(t):
+    """The tables as proved, with dead_exit forced off, and with two-word
+    list entries where one word was proved."""
+    forms = [t, dataclasses.replace(t, dead_exit=False)]
+    if t.one_word:
+        forms.append(dataclasses.replace(t, one_word=False))
+    return forms
+
+
+def _phf_held_to_plain(data, multi, singles, n, ms, geoms):
+    """K5 and K4 in bitmap mode at each (seg, halo) and in count mode
+    (shifts 0, 1, 5), in every form of the tables, against the plain
+    versions; K5's rows equal K4's bitmaps.  -> (K4, K5) launches."""
+    k4 = k5 = 0
+    kw = dict(input_size=n, max_steps=ms)
+    for mt in _phf_forms(multi):
+        for seg, halo in geoms:
+            g = dict(seg_bytes=seg, halo_bytes=halo, **kw)
+            got = K4.phf_scan_multi(data, mt, **g)
+            want = K4.phf_scan_multi_plain(data, mt, **g)
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+            k5 += 1
+            if mt is multi:
+                for s, one in enumerate(singles):
+                    c, b = K4.phf_scan(data, one, **g)
+                    cp, bp = K4.phf_scan_plain(data, one, **g)
+                    assert torch.equal(c, cp) and torch.equal(b, bp)
+                    assert torch.equal(b, got[1][s])
+                    k4 += 1
+        for shift in (0, 1, 5):
+            assert int(K4.phf_scan_multi(data, mt, emit="count", shift=shift,
+                                         **kw)) == \
+                int(K4.phf_scan_multi_plain(data, mt, emit="count",
+                                            shift=shift, **kw))
+            k5 += 1
+    for one in singles[:1]:
+        for ot in _phf_forms(one):
+            assert int(K4.phf_scan(data, ot, emit="count", shift=1,
+                                   **kw)) == \
+                int(K4.phf_scan_plain(data, ot, emit="count", shift=1,
+                                      **kw))
+            k4 += 1
+    return k4, k5
+
+
+@pytest.mark.parametrize("n_pos", [1024, 2048 + 1024, 5 * 2048 + 256 * 4,
+                                   1 << 16])
+@pytest.mark.parametrize("name", ["dense", "s0x"])
+def test_phf_tiles_equal_plain_at_every_tile_geometry(name, n_pos, dev):
+    """Half a block tile, a block tile and a half, five and a half, many
+    block tiles; 3 shards, at every segment geometry and exact."""
+    words, data = _dictionary(name)
+    multi, singles, ms = _phf_tables(words, dev, 3)
+    padded = to_device_bytes(pad_input(data[:n_pos], 1024, ms), dev)
+    assert padded.numel() - ms == n_pos
+    before, before_multi = K4.launches, K4.launches_multi
+    k4, k5 = _phf_held_to_plain(padded, multi, singles, n_pos, ms,
+                                PHF_GEOMS)
+    torch.cuda.synchronize()
+    assert K4.launches == before + k4  # one launch per call
+    assert K4.launches_multi == before_multi + k5
+
+
+@pytest.mark.parametrize("k", [1, 3, 7, 13])
+def test_phf_tiles_on_views_at_odd_byte_offsets(k, dev):
+    """A window that starts k bytes past a 16-byte boundary (as
+    match_chunked's views of a staged corpus can), with other bytes
+    after it in the same buffer: every mode against the plain version on
+    the same bytes."""
+    words, data = _dictionary("dense")
+    multi, singles, ms = _phf_tables(words, dev, 3)
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    rng = np.random.default_rng(k)
+    buf = torch.from_numpy(rng.integers(0, 256, padded.numel() + 64,
+                                        dtype=np.uint8)).to(dev)
+    view = buf[k:k + padded.numel()]
+    view.copy_(padded)
+    assert view.data_ptr() % 16 == k
+    before, before_multi = K4.launches, K4.launches_multi
+    k4, k5 = _phf_held_to_plain(view, multi, singles, len(data), ms,
+                                PHF_GEOMS)
+    # the same answers as on the aligned copy
+    got = K4.phf_scan_multi(view, multi, input_size=len(data), max_steps=ms)
+    want = K4.phf_scan_multi(padded, multi, input_size=len(data),
+                             max_steps=ms)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert K4.launches == before + k4
+    assert K4.launches_multi == before_multi + k5 + 2
+
+
+@pytest.mark.parametrize("shards", [1, 64])
+def test_phf_tiles_with_one_and_64_shards(shards, dev):
+    words, data = _dictionary("dense")
+    multi, singles, ms = _phf_tables(words, dev, shards)
+    assert multi.n_shards == shards
+    padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+    before_multi = K4.launches_multi
+    _k4, k5 = _phf_held_to_plain(padded, multi, singles[:3], len(data), ms,
+                                 [(0, 0), (4096, 512)])
+    torch.cuda.synchronize()
+    assert K4.launches_multi == before_multi + k5
+
+
+def _long_words():
+    """Patterns of 2-120 bytes over a small alphabet, and text with each
+    of the longest planted: walks of up to 120 steps."""
+    rng = np.random.default_rng(8)
+    alpha = np.frombuffer(b"abcdef", np.uint8)
+    words = list(dict.fromkeys(
+        bytes(alpha[rng.integers(0, 6, int(rng.integers(2, 12)))])
+        for _ in range(400)))
+    words += [bytes(alpha[rng.integers(0, 6, int(m))])
+              for m in (60, 97, 120)]
+    data = bytearray(alpha[rng.integers(0, 6, 1 << 15)])
+    for i, at in enumerate(range(100, len(data) - 200, 997)):
+        w = words[-1 - i % 3]
+        data[at:at + len(w)] = w
+    return words, bytes(data)
+
+
+def test_phf_tiles_count_mode_at_128_steps(dev):
+    """Count mode at its 128-step limit (the 128-byte halo), exact and
+    under cuts, with walks as deep as 120 steps, in every form of the
+    tables."""
+    words, data = _long_words()
+    multi, singles, ms = _phf_tables(words, dev, 2)
+    assert ms <= 128
+    padded = to_device_bytes(pad_input(data, 1024, 128), dev)
+    before, before_multi = K4.launches, K4.launches_multi
+    calls4 = calls5 = 0
+    for seg, halo in [(0, 0), (100, 3), (4096, 512), (6144, 512)]:
+        for mt in _phf_forms(multi):
+            for shift in (0, 1):
+                kw = dict(input_size=len(data), max_steps=128, emit="count",
+                          seg_bytes=seg, halo_bytes=halo, shift=shift)
+                want = int(K4.phf_scan_multi_plain(padded, mt, **kw))
+                assert int(K4.phf_scan_multi(padded, mt, **kw)) == want > 0
+                calls5 += 1
+        kw = dict(input_size=len(data), max_steps=128, emit="count",
+                  seg_bytes=seg, halo_bytes=halo)
+        for one in singles:
+            assert int(K4.phf_scan(padded, one, **kw)) == \
+                int(K4.phf_scan_plain(padded, one, **kw))
+            calls4 += 1
+    torch.cuda.synchronize()
+    assert K4.launches == before + calls4
+    assert K4.launches_multi == before_multi + calls5
+
+
+def test_phf_tiles_on_deep_lists(dev):
+    """32-byte patterns over their own repeats (every walker lives
+    through every step: full lists for 31 rounds), then one deep walker
+    a warp tile; two-word entries (a 256-wide table) and one-word."""
+    words, data, _plants = _deep_tiles()
+    for width in (256, 4096):
+        multi, singles, ms = _phf_tables(words, dev, 2, width=width)
+        assert ms == 32
+        padded = to_device_bytes(pad_input(data, 1024, ms), dev)
+        _phf_held_to_plain(padded, multi, singles, len(data), ms,
+                           PHF_GEOMS)
+        bits = K4.phf_scan_multi(padded, multi, input_size=len(data),
+                                 max_steps=ms)[1]
+        assert int(((bits[:, :len(data)] >> 31) & 1).sum()) >= 8192 - 31
