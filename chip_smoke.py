@@ -76,6 +76,34 @@ NO_LIBRARY = ("no single PyTorch call computes the automaton walk "
               "(a data-dependent chain of table gathers)")
 
 
+def device_ms(fn, name: str, reps: int = 5, tries: int = 3):
+    """Mean device time in ms of the kernels whose name holds ``name``
+    that ``fn`` launches: a ``torch.profiler`` trace of ``reps`` calls
+    after a warm-up, traced again (up to ``tries`` times) where a trace
+    shows no device time for them, which happens in a long process; None
+    if none does.  Beside ``cuda_ms``, which keeps the wrappers' host
+    work inside the time.  (``plan_times.py`` keeps a copy, to time
+    checkouts made before it.)"""
+    from phfpfac_tpu_torch.utils.profile import trace
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with trace() as mt:
+            for _ in range(reps):
+                fn()
+        secs = sum(v for k, v in mt.device_seconds_by_name().items()
+                   if name in k)
+        if secs:
+            return 1e3 * secs / reps
+    return None
+
+
+def plus(a, b):
+    """a + b, where None (not measured) stays None."""
+    return None if a is None or b is None else a + b
+
+
 def check(ok, what: str) -> None:
     """A failed check ends the run (not ``assert``: it must survive -O)."""
     if not ok:
@@ -736,14 +764,16 @@ def deep_work(staged, t, surv, cut, cap, seg):
 def compact_times(name, d):
     """CUDA-event ms per 16 MiB chunk, summed over the plan shards:
     K1' alone, K6 alone (the merge is inside it; no separate compaction
-    pass exists), the pair, and uncompacted K1 in the same run; bitmap
-    mode under the segment cut and count mode; survivors, cap and live
-    fraction at the cut; each kernel's bytes bound."""
+    pass exists; also by the profiler's device time, ``b_device_ms``),
+    the pair, and uncompacted K1 in the same run; bitmap mode under the
+    segment cut and count mode; survivors, cap and live fraction at the
+    cut; each kernel's bytes bound."""
     from phfpfac_tpu_torch.ops import plan as K1
     from phfpfac_tpu_torch.ops.staging import TILE
 
-    keys = ("a_ms", "b_ms", "pair_ms", "k1_ms", "a_plain_ms", "b_plain_ms",
-            "count_a_ms", "count_b_ms", "count_pair_ms", "count_k1_ms",
+    keys = ("a_ms", "b_ms", "b_device_ms", "pair_ms", "k1_ms", "a_plain_ms",
+            "b_plain_ms", "count_a_ms", "count_b_ms", "count_b_device_ms",
+            "count_pair_ms", "count_k1_ms",
             "a_bound_ms", "b_bound_ms", "count_a_bound_ms",
             "count_b_bound_ms", "b_sector_traffic_ms", "k1_bound_ms")
     r = dict.fromkeys(keys, 0.0)
@@ -762,6 +792,8 @@ def compact_times(name, d):
         tot, csurv = K1.plan_scan_compact_a(st, t, **ckw)
         r["a_ms"] += cuda_ms(lambda: K1.plan_scan_compact_a(st, t, **kw))
         r["b_ms"] += cuda_ms(lambda: K1.planb_scan(st, t, res, surv, **kw))
+        r["b_device_ms"] = plus(r["b_device_ms"], device_ms(
+            lambda: K1.planb_scan(st, t, res, surv, **kw), "planb_scan"))
         r["pair_ms"] += cuda_ms(lambda: K1.plan_scan_compact(st, t, **kw))
         r["k1_ms"] += cuda_ms(lambda: K1.plan_scan(
             st, t, seg_bytes=SEG, halo_bytes=HALO))
@@ -773,6 +805,8 @@ def compact_times(name, d):
             lambda: K1.plan_scan_compact_a(st, t, **ckw))
         r["count_b_ms"] += cuda_ms(
             lambda: K1.planb_scan(st, t, tot, csurv, **ckw))
+        r["count_b_device_ms"] = plus(r["count_b_device_ms"], device_ms(
+            lambda: K1.planb_scan(st, t, tot, csurv, **ckw), "planb_scan"))
         r["count_pair_ms"] += cuda_ms(
             lambda: K1.plan_scan_compact(st, t, **ckw))
         r["count_k1_ms"] += cuda_ms(lambda: K1.plan_scan(st, t,
@@ -1123,7 +1157,8 @@ def probes_phase(device):
     and 4 too), every timed shape held to its plain version first; then
     each kernel, its plain version and (P2) the PyTorch call that
     compacts the same input, timed at one shape for the kernels line and
-    compared there too."""
+    compared there too; P2's three forms also by the profiler's device
+    time."""
     from phfpfac_tpu_torch.probes import compact, gather
 
     gather.launches = compact.launches = 0
@@ -1157,6 +1192,12 @@ def probes_phase(device):
                          reps=2),
         bound_ms=(8 * walkers + GATHER_T) / HBM_BYTES_PER_S * 1e3,
         walkers=walkers, table_bytes=GATHER_T, **kw)
+    # what the card moves: a 32 B sector for every dependent gather, from
+    # a table small enough for L2 (the data sheet gives no L2 rate)
+    p1["sector_bytes"] = 32 * walkers * kw["reps"]
+    p1["sector_rate_tb_per_s"] = p1["sector_bytes"] / p1["ms"] / 1e9
+    p1["sector_bytes_at_hbm_rate_ms"] = (p1["sector_bytes"]
+                                         / HBM_BYTES_PER_S * 1e3)
     del table, idx
     lanes = compact.SWEEP_LANES
     disp = torch.from_numpy(compact.make_disp(rng, lanes)).to(device)
@@ -1165,7 +1206,14 @@ def probes_phase(device):
           f"probe_compact at the kernels line's shape ({lanes} lanes)")
     p2 = dict(
         ms=cuda_ms(lambda: compact.probe_compact(disp, 1)),
+        device_ms=device_ms(lambda: compact.probe_compact(disp, 1),
+                            "probe_compact"),
         copy_ms=cuda_ms(lambda: compact.probe_copy(disp, 1)),
+        copy_device_ms=device_ms(lambda: compact.probe_copy(disp, 1),
+                                 "probe_compact"),
+        atomic_ms=cuda_ms(lambda: compact.probe_compact_atomic(disp, 1)),
+        atomic_device_ms=device_ms(
+            lambda: compact.probe_compact_atomic(disp, 1), "probe_compact"),
         plain_ms=cuda_ms(lambda: compact.probe_compact_plain(disp, 1),
                          reps=2),
         library_ms=cuda_ms(lambda: disp[disp != 0]),
@@ -1517,8 +1565,11 @@ def _built(make, *a, **kw):
 
 def soak_plan(sc, corpus, device, what) -> int:
     """K1 in bitmap (under the cut and exact) and count mode, K1′ + K6 at
-    an explicit cut with a cap that holds every survivor and with one
-    that overflows, against the plain versions.  -> checks made."""
+    an explicit cut with a cap that holds every survivor (cap = count,
+    and the cap ``resolve_compact`` would give: 8 x count rounded up to
+    a block), with no survivors (a last cut that leaves none, else K6
+    fed a zeroed count) and with a cap that overflows (K1′ alone, and K6
+    on its buffers), against the plain versions.  -> checks made."""
     from phfpfac_tpu_torch.ops import plan as K1
     from phfpfac_tpu_torch.ops.staging import TILE
 
@@ -1537,20 +1588,42 @@ def soak_plan(sc, corpus, device, what) -> int:
     if len(t.spec) < 2:
         return checks
     cut = len(t.spec) // 2
+    block = K1.COMPACT_BLOCK
     for seg, halo in (SOAK_SEG, (0, 0)):
         kw = dict(cut=cut, seg_bytes=seg, halo_bytes=halo)
         w = f"{what}: K1' + K6 cut={cut} seg={seg}"
         want, wsurv = K1.plan_scan_compact_a_plain(st, t, cap=n_pos, **kw)
         count = int(wsurv[2])
-        cap = max(count, 1)
-        got, surv = K1.plan_scan_compact_a(st, t, cap=cap, **kw)
-        agree("plan_scan_compact_a", [*got, *sorted_survivors(surv, cap)],
-              [*want, *sorted_survivors(wsurv, cap)], w)
         whole = K1.plan_scan_plain(st, t, seg_bytes=seg, halo_bytes=halo)
-        res = K1.plan_scan_compact(st, t, cap=cap, **kw)
-        agree("planb_scan", res[:2], whole, f"{w}: != K1's plain version")
-        check(int(res[2]) == count, f"{w}: survivor count")
-        checks += 2
+        real = -(-8 * max(count, 1) // block) * block
+        for cap in (max(count, 1), real):
+            got, surv = K1.plan_scan_compact_a(st, t, cap=cap, **kw)
+            agree("plan_scan_compact_a",
+                  [*got, *sorted_survivors(surv, cap)],
+                  [*want, *sorted_survivors(wsurv, cap)], f"{w} cap={cap}")
+            res = K1.plan_scan_compact(st, t, cap=cap, **kw)
+            agree("planb_scan", res[:2], whole,
+                  f"{w} cap={cap}: != K1's plain version")
+            check(int(res[2]) == count, f"{w} cap={cap}: survivor count")
+            checks += 2
+        # no survivors: the last cut where it leaves none, else K6 fed a
+        # zeroed count (it must leave phase A's result as it is)
+        last = dict(kw, cut=len(t.spec) - 1)
+        _r, lsurv = K1.plan_scan_compact_a_plain(st, t, cap=n_pos, **last)
+        if int(lsurv[2]) == 0:
+            res = K1.plan_scan_compact(st, t, cap=block, **last)
+            agree("planb_scan", res[:2], whole,
+                  f"{w}: no survivors at cut {last['cut']}")
+            check(int(res[2]) == 0, f"{w}: survivors at the last cut")
+        else:
+            got, surv = K1.plan_scan_compact_a(st, t, cap=real, **kw)
+            before = [x.clone() for x in got]
+            K1.planb_scan(st, t, got, (surv[0], surv[1],
+                                       torch.zeros_like(surv[2])),
+                          cap=real, **kw)
+            agree("planb_scan", got, before,
+                  f"{w}: K6 with a zeroed count changed its result")
+        checks += 1
         if count < 2:
             continue
         cap = count // 2  # overflows: the true count, cap of the set
@@ -1563,8 +1636,36 @@ def soak_plan(sc, corpus, device, what) -> int:
         check(torch.unique(gp).numel() == cap and torch.equal(wp[at], gp)
               and torch.equal(wd[at], gd),
               f"{w} cap={cap}: survivors not {cap} of the plain set")
-        checks += 1
+        # K6 on the overflowed buffers: the first cap of them, as plain
+        wres = [x.clone() for x in got]
+        K1.planb_scan(st, t, got, surv, cap=cap, **kw)
+        K1.planb_scan_plain(st, t, wres, surv, cap=cap, **kw)
+        agree("planb_scan", got, wres, f"{w} cap={cap}: K6 after overflow")
+        checks += 2
     return checks
+
+
+def soak_mesh(compiled, cfg, train, data, want, what) -> int:
+    """``PlanMeshMatcher`` on two cells of the one card, compacted at an
+    explicit (cut, cap), against ``match_chunked``'s output ``want`` on
+    ``data``.  -> 1, or 0 where the plan tables refuse the dictionary."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.parallel.mesh import make_mesh
+    from phfpfac_tpu_torch.parallel.mesh_pallas import PlanMeshMatcher
+
+    pm = _built(PlanMeshMatcher, compiled, cfg,
+                make_mesh(2, 1, cell_devices(2)), train=train,
+                compact=(1, 8 * K1.COMPACT_BLOCK))
+    if pm is None:
+        return 0
+    before = K1.launches_compact_b
+    got = pm.match(data)
+    if any(len(pt.steps) > 1 for pt in pm._shard_pts):  # a cut at step 1
+        check(K1.launches_compact_b > before, f"{what}: the mesh ran no K6")
+    check(np.array_equal(np.asarray(got).reshape(-1, 2),
+                         np.asarray(want).reshape(-1, 2)),
+          f"{what}: the compacted plan mesh != match_chunked")
+    return 1
 
 
 def soak_depth(ds, corpus, device, what) -> int:
@@ -1710,7 +1811,8 @@ def soak_phase(device) -> dict:
     shard, K5 over the shards and K4 on each (``soak_phf``), bit for bit
     against their plain versions, and ``Matcher.match_chunked`` on the
     card under a 512 + 64 B segment cut and in exact mode against the
-    host oracle.  The first mismatch fails the run."""
+    host oracle, and the compacted ``PlanMeshMatcher`` against it
+    (``soak_mesh``).  The first mismatch fails the run."""
     from phfpfac_tpu_torch.ops import depth as K2
     from phfpfac_tpu_torch.ops import pair as K3
     from phfpfac_tpu_torch.ops import plan as K1
@@ -1720,9 +1822,9 @@ def soak_phase(device) -> dict:
 
     t0 = time.perf_counter()
     checks = dict(plan_scan=0, depth_scan=0, pair_scan=0, phf_scan=0,
-                  phf_scan_multi=0, end_to_end=0)
+                  phf_scan_multi=0, end_to_end=0, plan_mesh=0)
     p0_modes, kinds = set(), []
-    refused = dict(plan=0, depth=0, pair=0, phf=0)
+    refused = dict(plan=0, depth=0, pair=0, phf=0, plan_mesh=0)
     cfgs = {"segment": PfacConfig(width=4096, num_shards=2,
                                   truncation="segment",
                                   segment_bytes=SOAK_SEG[0],
@@ -1749,6 +1851,11 @@ def soak_phase(device) -> dict:
                       f"soak seed {seed} ({kind}, {mode}): match_chunked "
                       f"!= the oracle")
                 checks["end_to_end"] += 1
+                ran = soak_mesh(compiled, cfg, train,
+                                corpus[:SOAK_E2E_BYTES], got,
+                                f"soak seed {seed} ({kind}, {mode})")
+                checks["plan_mesh"] += ran
+                refused["plan_mesh"] += 1 - ran
                 if mode != "segment":
                     continue
                 for si, (_k, sc) in enumerate(shard_kernels(m)):
@@ -2591,7 +2698,10 @@ def main() -> int:
              bound_ms=ct["ascii50k"]["b_bound_ms"], bound_by="bytes",
              library_ms=None, library_note=NO_LIBRARY,
              detail={"launches": {k: v for k, v in launches.items()
-                                  if k.startswith("compact_path")}}),
+                                  if k.startswith("compact_path")},
+                     **{name: {k: v for k, v in r.items()
+                               if "b_" in k or k in ("survivors", "cap")}
+                        for name, r in ct.items()}}),
     ]
     kernels += [
         dict(name="probe_gather", route="cuda",

@@ -72,9 +72,13 @@
 
 namespace {
 
+using plan::Codes;
 using plan::count_shift;
 using plan::kMaxSteps;
+using plan::probe;
 using plan::segment_room;
+using plan::Step;
+using plan::Steps;
 
 constexpr int kThreads = 256;  // threads per block
 constexpr int kWarps = kThreads / 32;
@@ -87,24 +91,6 @@ constexpr int kMinBlocks = 5;  // resident blocks per SM (shared memory)
 static_assert(kWarpTile % 4 == 0 && (kWarpTile + kHalo) % 4 == 0,
               "a warp tile is whole 16-byte copies and stores");
 static_assert(kWarpTile <= 65536, "a list entry keeps its offset in 16 bits");
-
-// One step's ready operands (ops/plan.py STEP_DESC_FIELDS, in order).
-struct Step {
-  int o;     // char offset of the step's window (depth0 - 1)
-  int pair;  // 0: mono, 1: pair + side table
-  unsigned base, lo, span;  // main table: off * 128, k0 * 128, nb * 128
-  unsigned cmask, finm, vmask, vsh;  // mono: symbol, fin flag, kept bits
-  unsigned s_base, s_lo, s_span;     // side table, as the main one
-  // side word of sidx: banks[sidx >> wsh], field
-  // (w >> ((sidx & smask) << fsh)) & fmask against (a1 & amask) + 1
-  unsigned wsh, smask, fsh, fmask, amask;
-};
-constexpr int kStepWords = 17;
-static_assert(sizeof(Step) == kStepWords * 4, "Step is 17 packed words");
-
-struct Steps {
-  Step s[kMaxSteps];
-};
 
 // A warp's own shared memory: nothing in it is read by another warp.
 struct WarpSmem {
@@ -151,55 +137,20 @@ __device__ __forceinline__ void load_tile(int* dst,
   for (int i = lane; i < kQuads; i += 32) cp_async16(d + i, src + i);
 }
 
-__device__ __forceinline__ unsigned probe(const int* __restrict__ banks,
-                                          unsigned base, unsigned lo,
-                                          unsigned span, unsigned idx) {
-  const unsigned u = idx - lo;
-  return u < span ? static_cast<unsigned>(__ldg(banks + base + u)) : ~0u;
-}
-
 // One step for one walker at tile offset p; sets its fin bits in out[p].
 // -> whether it is still live (its new displacement in `disp`).
 template <bool kSeg>
 __device__ __forceinline__ bool walk_step(
     const Step& d, const int* ts, unsigned* out, int p, int room,
-    unsigned cbm, unsigned pair_keep, unsigned pair_fin, int pair_vsh,
-    const int* __restrict__ packed, const int* __restrict__ side,
-    unsigned dead, unsigned& disp) {
+    const Codes& c, const int* __restrict__ packed,
+    const int* __restrict__ side, unsigned dead, unsigned& disp) {
   if (kSeg && !(room > d.o)) return false;  // the cut: it reads no further
-  const unsigned cur = static_cast<unsigned>(ts[p + d.o]);
-  unsigned fin_bits, next;
   bool hit;
-  if (!d.pair) {
-    const unsigned sym = cur & d.cmask;
-    const unsigned g = probe(packed, d.base, d.lo, d.span, disp + sym);
-    const unsigned gs = g & d.vmask;
-    const bool fin = gs == (sym | d.finm);
-    fin_bits = fin ? 1u << d.o : 0u;
-    hit = fin || gs == sym;
-    next = g >> d.vsh;
-  } else {
-    const unsigned g = probe(packed, d.base, d.lo, d.span, disp + cur);
-    const unsigned a1 = cur & cbm;
-    const unsigned sidx = disp + a1;
-    const unsigned w = probe(side, d.s_base, d.s_lo, d.s_span, sidx >> d.wsh);
-    const bool fin_mid = ((w >> ((sidx & d.smask) << d.fsh)) & d.fmask) ==
-                         (a1 & d.amask) + 1u;
-    const unsigned gs = g & pair_keep;
-    bool fin_end = gs == (cur | pair_fin);
-    hit = fin_end || gs == cur;
-    if (kSeg && !(room > d.o + 1)) {
-      // cut between the pair's two chars: the mid completion stands,
-      // the end match and the chain do not
-      fin_end = false;
-      hit = false;
-    }
-    fin_bits = (fin_mid ? 1u << d.o : 0u) | (fin_end ? 2u << d.o : 0u);
-    next = g >> pair_vsh;
-  }
+  const unsigned fin_bits = plan::step_bits<kSeg>(
+      d, static_cast<unsigned>(ts[p + d.o]), room, c, packed, side, disp,
+      hit);
   if (fin_bits) out[p] |= fin_bits;
-  disp = next;
-  return hit && next != dead;
+  return hit && disp != dead;
 }
 
 // Writes k <= 32 survivors (lane i < k holds entry e) to the cap-sized
@@ -272,10 +223,8 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
   const int wid = threadIdx.x >> 5;
   const unsigned lt = (1u << lane) - 1u;
   WarpSmem& ws = sm.w[wid];
-  const unsigned cbm = (1u << cb) - 1u;
-  const unsigned pair_fin = 1u << (2 * cb);
-  const unsigned pair_keep = (pair_fin - 1u) | pair_fin;
-  const int pair_vsh = 2 * cb + 1;
+  const Codes c(cb);
+  const unsigned cbm = c.cbm;
   const int sh = kBitmap ? 0 : count_shift(shift, prev);
   unsigned long long sum = 0;
   int nbuf = 0;  // K1' survivors waiting in sm.surv[wid]
@@ -360,8 +309,8 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
         if (i < n)
           live = walk_step<kSeg>(
               d, ts, ws.out, p,
-              kSeg ? segment_room(seg_base + p, seg, halo) : 0, cbm,
-              pair_keep, pair_fin, pair_vsh, packed, side, dead, x);
+              kSeg ? segment_room(seg_base + p, seg, halo) : 0, c,
+              packed, side, dead, x);
         const unsigned m = __ballot_sync(0xffffffffu, live);
         if (live) {
           const int j = kept + __popc(m & lt);  // j <= i: in place
@@ -386,9 +335,8 @@ plan_scan_kernel(const int* __restrict__ pairs, int n_pos,
     const int room = kSeg ? segment_room(seg_base + p, seg, halo) : 0;
     for (; s < n_steps && __any_sync(0xffffffffu, live); ++s)
       if (live)
-        live = walk_step<kSeg>(steps.s[s], ts, ws.out, p, room, cbm,
-                               pair_keep, pair_fin, pair_vsh, packed, side,
-                               dead, x);
+        live = walk_step<kSeg>(steps.s[s], ts, ws.out, p, room, c, packed,
+                               side, dead, x);
     if (kSurv)  // the walkers live at the cut
       emit_survivors(n, ws.pos, ws.disp, in_list, live, p, x, start, lane,
                      sm.surv[wid], nbuf, cap, surv_pos, surv_disp,

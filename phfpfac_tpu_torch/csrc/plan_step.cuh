@@ -1,9 +1,11 @@
-// The plan walk's step chain over the raw step rows, walked by the
-// compacted phase-B kernel (planb_scan.cu: the steps after the cut,
-// survivors only), and the helpers it shares with the plan kernel
-// (plan_scan.cu, which walks pre-decoded steps of its own: segment_room,
-// count_shift, kMaxSteps).  Replaces phfpfac_tpu/ops/pallas_plan.py::
-// _run_steps; the plain torch version is ops/plan.py::plan_steps_plain.
+// The plan walk's step, shared by the plan kernel (plan_scan.cu, K1 and
+// K1', which reads a step's window from its tile's staged words in
+// shared memory) and the compacted phase-B kernel (planb_scan.cu, K6,
+// which reads it from device memory at the survivor's position): the
+// pre-decoded step (ops/plan.py::step_descriptors), its probe and its
+// body, and the helpers both kernels take.  Replaces phfpfac_tpu/ops/
+// pallas_plan.py::_run_steps; the plain torch version is ops/plan.py::
+// plan_steps_plain.
 
 #pragma once
 
@@ -12,18 +14,46 @@
 
 namespace plan {
 
-constexpr int kFields = 11;  // ops/plan.py STEP_FIELDS
 constexpr int kMaxSteps = 32;
-constexpr int kThreads = 256;
 
-enum Field { KIND, DEPTH0, OFF, NB, K0, S_OFF, S_NB, S_K0, S_NIBBLE, MISS,
-             COL_BITS };
+// One step's ready operands (ops/plan.py STEP_DESC_FIELDS, in order).
+struct Step {
+  int o;     // char offset of the step's window (depth0 - 1)
+  int pair;  // 0: mono, 1: pair + side table
+  unsigned base, lo, span;  // main table: off * 128, k0 * 128, nb * 128
+  unsigned cmask, finm, vmask, vsh;  // mono: symbol, fin flag, kept bits
+  unsigned s_base, s_lo, s_span;     // side table, as the main one
+  // side word of sidx: banks[sidx >> wsh], field
+  // (w >> ((sidx & smask) << fsh)) & fmask against (a1 & amask) + 1
+  unsigned wsh, smask, fsh, fmask, amask;
+};
+constexpr int kStepWords = 17;
+static_assert(sizeof(Step) == kStepWords * 4, "Step is 17 packed words");
 
-__device__ __forceinline__ int probe(const int* __restrict__ banks, int off,
-                                     int nb, int k0, int idx) {
-  const int b = idx >> 7;  // arithmetic: a negative idx misses
-  if (b < k0 || b >= k0 + nb) return -1;
-  return __ldg(banks + (off + b - k0) * 128 + (idx & 127));
+// A launch's steps, by value: a __grid_constant__ kernel parameter,
+// read through the constant cache.
+struct Steps {
+  Step s[kMaxSteps];
+};
+
+// The code width's masks, the same for every step of a walk.
+struct Codes {
+  unsigned cbm, pair_fin, pair_keep;
+  int pair_vsh;
+  __device__ explicit Codes(int cb)
+      : cbm((1u << cb) - 1u),
+        pair_fin(1u << (2 * cb)),
+        pair_keep(((1u << (2 * cb)) - 1u) | (1u << (2 * cb))),
+        pair_vsh(2 * cb + 1) {}
+};
+
+// banks[(off + (idx >> 7) - k0) * 128 + (idx & 127)] inside k0 <= idx >> 7
+// < k0 + nb, else ~0u (-1): one subtract, one unsigned compare, one load.
+__device__ __forceinline__ unsigned probe(const int* __restrict__ banks,
+                                          unsigned base, unsigned lo,
+                                          unsigned span, unsigned idx) {
+  const unsigned u = idx - lo;
+  return u < span ? static_cast<unsigned>(__ldg(banks + base + u)) : ~0u;
 }
 
 // Chars a walker at pos may read before the segment cut.
@@ -31,97 +61,42 @@ __device__ __forceinline__ int segment_room(int pos, int seg, int halo) {
   return (pos & ~(seg - 1)) + seg + halo - pos;
 }
 
-// Walks `n_steps` rows of `steps` (shared memory) for the walker at
-// `pos`, from displacement `disp`; sets the steps' fin bits in `out`.
-// A walker stops when its displacement falls to `dead`; one that the
-// segment cut stops before a step is set dead, as the plain version
-// does, so a caller that hands `disp` on hands on live walkers only.
+// The body of step `d` for a walker whose window word at the step's
+// offset is `cur` (the caller has checked the segment cut before the
+// window): -> the step's fin bits; `disp` becomes the probe's next
+// displacement and `hit` says whether the walk chains on.
 template <bool kSeg>
-__device__ __forceinline__ void walk_steps(
-    const int* __restrict__ steps, int n_steps,
-    const int* __restrict__ pairs, int pos, int room, int cb, uint32_t dead,
-    const int* __restrict__ packed, const int* __restrict__ side,
-    uint32_t& disp, uint32_t& out) {
-  const uint32_t cbm = (1u << cb) - 1u;
-  const uint32_t pair_mask = (1u << (2 * cb)) - 1u;
-  const uint32_t pair_fin = 1u << (2 * cb);
-  for (int s = 0; s < n_steps && disp != dead; ++s) {
-    const int* sp = steps + s * kFields;
-    const int o = sp[DEPTH0] - 1;  // char offset of the step's window
-    const uint32_t miss = static_cast<uint32_t>(sp[MISS]);
-    if (kSeg && !(room > o)) {  // cut: the walk reads no further
-      disp = miss;
-      break;
-    }
-    const uint32_t cur = static_cast<uint32_t>(pairs[pos + o]);
-    if (sp[KIND] == 0) {  // mono
-      const int colb = sp[COL_BITS];
-      uint32_t cmask, finm;
-      int vsh;
-      if (colb) {  // split step: only col_bits symbol bits verify
-        cmask = (1u << colb) - 1u;
-        finm = 1u << (colb + 1);
-        vsh = colb + 2;
-      } else {
-        cmask = cbm;
-        finm = 1u << cb;
-        vsh = cb + 1;
-      }
-      const uint32_t sym = cur & cmask;
-      const uint32_t g = static_cast<uint32_t>(
-          probe(packed, sp[OFF], sp[NB], sp[K0],
-                static_cast<int>(disp + sym)));
-      const uint32_t gs = g & ((1u << vsh) - 1u);
-      const bool fin = gs == (sym | finm);
-      if (fin) out |= 1u << o;
-      disp = (fin || gs == sym) ? (g >> vsh) : miss;
-    } else {  // pair + side table
-      const uint32_t g = static_cast<uint32_t>(
-          probe(packed, sp[OFF], sp[NB], sp[K0],
-                static_cast<int>(disp + cur)));
-      const uint32_t a1 = cur & cbm;
-      const uint32_t sidx = disp + a1;
-      bool fin_mid;
-      if (sp[S_NIBBLE]) {
-        const uint32_t w = static_cast<uint32_t>(
-            probe(side, sp[S_OFF], sp[S_NB], sp[S_K0],
-                  static_cast<int>(sidx >> 3)));
-        fin_mid = ((w >> ((sidx & 7u) << 2)) & 15u) == (a1 & 7u) + 1u;
-      } else {
-        const uint32_t w = static_cast<uint32_t>(
-            probe(side, sp[S_OFF], sp[S_NB], sp[S_K0],
-                  static_cast<int>(sidx >> 2)));
-        fin_mid = ((w >> ((sidx & 3u) << 3)) & 255u) == a1 + 1u;
-      }
-      const uint32_t gs = g & (pair_mask | pair_fin);
-      bool fin_end = gs == (cur | pair_fin);
-      bool hit = fin_end || gs == cur;
-      if (kSeg && !(room > o + 1)) {
-        // cut between the pair's two chars: the mid completion
-        // stands, the end match and the chain do not
-        fin_end = false;
-        hit = false;
-      }
-      if (fin_mid) out |= 1u << o;
-      if (fin_end) out |= 1u << (o + 1);
-      disp = hit ? (g >> (2 * cb + 1)) : miss;
-    }
+__device__ __forceinline__ unsigned step_bits(const Step& d, unsigned cur,
+                                              int room, const Codes& c,
+                                              const int* __restrict__ packed,
+                                              const int* __restrict__ side,
+                                              unsigned& disp, bool& hit) {
+  if (!d.pair) {
+    const unsigned sym = cur & d.cmask;
+    const unsigned g = probe(packed, d.base, d.lo, d.span, disp + sym);
+    const unsigned gs = g & d.vmask;
+    const bool fin = gs == (sym | d.finm);
+    hit = fin || gs == sym;
+    disp = g >> d.vsh;
+    return fin ? 1u << d.o : 0u;
   }
-}
-
-// Count-mode reduction: adds the block's sum of `c` to *total with one
-// atomic per block.  Every thread of the block calls it.
-__device__ __forceinline__ void block_add(unsigned int c,
-                                          unsigned int* warp_sums,
-                                          unsigned long long* total) {
-  for (int d = 16; d > 0; d >>= 1) c += __shfl_down_sync(0xffffffffu, c, d);
-  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long s = 0;
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w];
-    if (s) atomicAdd(total, s);
+  const unsigned g = probe(packed, d.base, d.lo, d.span, disp + cur);
+  const unsigned a1 = cur & c.cbm;
+  const unsigned sidx = disp + a1;
+  const unsigned w = probe(side, d.s_base, d.s_lo, d.s_span, sidx >> d.wsh);
+  const bool fin_mid = ((w >> ((sidx & d.smask) << d.fsh)) & d.fmask) ==
+                       (a1 & d.amask) + 1u;
+  const unsigned gs = g & c.pair_keep;
+  bool fin_end = gs == (cur | c.pair_fin);
+  hit = fin_end || gs == cur;
+  if (kSeg && !(room > d.o + 1)) {
+    // cut between the pair's two chars: the mid completion stands, the
+    // end match and the chain do not
+    fin_end = false;
+    hit = false;
   }
+  disp = g >> c.pair_vsh;
+  return (fin_mid ? 1u << d.o : 0u) | (fin_end ? 2u << d.o : 0u);
 }
 
 // The shift of a count-mode scan: positions below it do not count.  A

@@ -16,7 +16,8 @@
 //
 // Here: the cp.async ring, the probe over a pre-decoded table, the
 // list's ballot slot, the tile's outputs, the count reduction and the
-// persistent grid.
+// persistent grid.  The compacted phase-B walk (planb_scan.cu, K6) and
+// the compaction probe (probe_compact.cu, P2) take the last two.
 
 #pragma once
 
@@ -148,26 +149,38 @@ cudaError_t occupancy(Kernel kern, int smem, int* per_sm) {
 
 constexpr int kMaxDevices = 64;
 
-// The persistent grid of `kern` for `n_pos` positions: one block per
-// block tile, at most the resident blocks of the whole current device
-// (asked once per device and kept in `known`, one array per kernel).
+// The resident blocks of `kern` (kThreads a block, `smem` bytes of
+// dynamic shared memory) on the whole current device: the SMs x the
+// blocks an SM takes, asked once per device and kept in `known`, one
+// array per kernel.
 template <typename Kernel>
-cudaError_t persistent_grid(Kernel kern, int smem, int n_pos, int* known,
-                            int* grid) {
-  int dev = 0, resident = 0;
+cudaError_t resident_blocks(Kernel kern, int smem, int* known,
+                            int* resident) {
+  int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < kMaxDevices && known[dev]) {
-    resident = known[dev];
-  } else {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess) e = occupancy(kern, smem, &per_sm);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident = sms * per_sm;
-    if (dev < kMaxDevices) known[dev] = resident;
+    *resident = known[dev];
+    return cudaSuccess;
   }
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = occupancy(kern, smem, &per_sm);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *resident = sms * per_sm;
+  if (dev < kMaxDevices) known[dev] = *resident;
+  return cudaSuccess;
+}
+
+// The persistent grid of `kern` for `n_pos` positions: one block per
+// block tile, at most the resident blocks of the whole current device.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kern, int smem, int n_pos, int* known,
+                            int* grid) {
+  int resident = 0;
+  const cudaError_t e = resident_blocks(kern, smem, known, &resident);
+  if (e != cudaSuccess) return e;
   const int tiles = (n_pos + kTile - 1) / kTile;
   *grid = tiles < resident ? tiles : resident;
   return cudaSuccess;

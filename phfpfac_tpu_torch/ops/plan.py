@@ -40,7 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -56,9 +56,6 @@ from phfpfac_tpu_torch.ops.staging import (
     to_device_bytes,
 )
 
-# one row of the step array the kernel reads (csrc/plan_scan.cu)
-STEP_FIELDS = ("kind", "depth0", "off", "nb", "k0", "s_off", "s_nb",
-               "s_k0", "s_nibble", "miss", "col_bits")
 P0_MODES = {"dense": 0, "s0": 1, "s0x": 2}
 
 # the plan kernel's geometry (csrc/plan_scan.cu kTile, kHalo)
@@ -82,34 +79,43 @@ class PlanKernelTables:
     p0: torch.Tensor  # int32 [nb_p0, 128]
     packed: torch.Tensor  # int32 [nb, 128]
     side: torch.Tensor  # int32 [ns, 128]
-    steps: torch.Tensor  # int32 [n_steps, len(STEP_FIELDS)]
     code_of: torch.Tensor  # int32 [256]
     spec: tuple  # tuple[StepSpec]
     desc: np.ndarray  # host uint32 [n_steps, 17]: step_descriptors(spec)
     cb: int
     p0_mode: str
     p0_miss: int
+    # cut -> K6's descriptors of spec[cut:] and their address (deep_desc)
+    _deep: dict = field(default_factory=dict, init=False, repr=False,
+                        compare=False)
 
     @classmethod
     def from_plan(cls, pt: PlanTables, device) -> "PlanKernelTables":
-        rows = [
-            [int(getattr(s, f)) if f != "kind" else int(s.kind == "pair")
-             for f in STEP_FIELDS]
-            for s in pt.steps
-        ]
-        steps = np.asarray(rows, np.int32).reshape(-1, len(STEP_FIELDS))
-
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 device)
 
         return cls(
             p0=dev(pt.p0_banks), packed=dev(pt.packed_banks),
-            side=dev(pt.side_banks), steps=dev(steps),
-            code_of=dev(pt.code_of), spec=tuple(pt.steps),
+            side=dev(pt.side_banks), code_of=dev(pt.code_of),
+            spec=tuple(pt.steps),
             desc=step_descriptors(pt.steps, pt.code_bits, pt.p0_miss),
             cb=pt.code_bits, p0_mode=pt.p0_mode, p0_miss=pt.p0_miss,
         )
+
+    def deep_desc(self, cut: int) -> np.ndarray:
+        """K6's steps: ``step_descriptors(spec[cut:])``, built once a cut
+        and kept; the table operands it walks are checked then, once."""
+        return self._deep_entry(cut)[0]
+
+    def _deep_entry(self, cut: int):
+        got = self._deep.get(cut)
+        if got is None:
+            for name in ("packed", "side"):
+                check_operand(getattr(self, name), self.packed.device, name)
+            desc = step_descriptors(self.spec[cut:], self.cb, self.p0_miss)
+            got = self._deep[cut] = (desc, desc.ctypes.data)
+        return got
 
 
 # ---- plain torch version --------------------------------------------------
@@ -314,8 +320,9 @@ def step_descriptors(spec: tuple, cb: int, p0_miss: int) -> np.ndarray:
     """The steps of ``spec`` as the tile kernel's ready operands: uint32
     [len(spec), len(STEP_DESC_FIELDS)], one row per step.
 
-    ``spec`` is the host copy of the ``steps`` rows (``t.spec``), so no
-    launch reads the device.  A probe of a table at (off, nb, k0) becomes
+    ``spec`` is the plan's step list on the host (``t.spec``), so no
+    launch reads the device; K1 walks all of it, K6 ``spec[cut:]``.  A
+    probe of a table at (off, nb, k0) becomes
     ``u = idx - lo; u < span ? banks[base + u] : -1`` with ``base = off *
     128``, ``lo = k0 * 128``, ``span = nb * 128`` (unsigned arithmetic:
     a negative ``idx`` misses); a mono step's symbol mask, fin flag, kept
@@ -412,6 +419,12 @@ def _ptr(x):
 
 
 def _stream(dev):
+    """``dev``'s current stream as a raw handle: where ``dev`` is the
+    current device straight from PyTorch's stream registry (no Stream
+    object, no device context), else inside a device context."""
+    cur = torch.cuda.current_device()
+    if dev.index is None or dev.index == cur:
+        return torch._C._cuda_getCurrentRawStream(cur)
     with torch.cuda.device(dev):
         return torch.cuda.current_stream(dev).cuda_stream
 
@@ -429,7 +442,7 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
     -> (result, (surv_pos, surv_disp, count))."""
     global launches, launches_compact_a
     dev = staged.device
-    for name in ("p0", "packed", "side", "steps"):
+    for name in ("p0", "packed", "side"):
         check_operand(getattr(t, name), dev, name)
     check_operand(staged, dev, "staged")
     if seg_bytes & (seg_bytes - 1):
@@ -478,16 +491,21 @@ def _plan_scan_cuda(staged, t, *, emit, seg_bytes, halo_bytes, shift,
 
 def _planb_scan_cuda(staged, t, result, surv, *, cut, cap, emit, seg_bytes,
                      halo_bytes, shift, prev_total):
+    """One launch of K6 over steps ``[cut:]``.  The tables' operands are
+    checked once a cut (``t.deep_desc``); what the call brings, every
+    call."""
     global launches_compact_b
     dev = staged.device
+    desc, desc_ptr = t._deep_entry(cut)
+    if t.packed.device != dev:
+        raise ValueError(f"tables on {t.packed.device}, staged on {dev}")
     surv_pos, surv_disp, count = surv
     bitmap = emit == "bitmap"
     cnt, bits = result if bitmap else (None, None)
     total = None if bitmap else result
-    for name, x in (("staged", staged), ("packed", t.packed),
-                    ("side", t.side), ("steps", t.steps),
-                    ("surv_pos", surv_pos), ("surv_disp", surv_disp),
-                    ("count", count), ("cnt", cnt), ("bits", bits)):
+    for name, x in (("staged", staged), ("surv_pos", surv_pos),
+                    ("surv_disp", surv_disp), ("count", count),
+                    ("cnt", cnt), ("bits", bits)):
         if x is not None:
             check_operand(x, dev, name)
     if surv_pos.numel() < cap or surv_disp.numel() < cap:
@@ -497,11 +515,11 @@ def _planb_scan_cuda(staged, t, result, surv, *, cut, cap, emit, seg_bytes,
         raise ValueError("total: need an int64 tensor on the device")
     _check_prev(prev_total, dev)
     err = _lib_b().planb_scan(
-        staged.data_ptr(), t.packed.data_ptr(), t.side.data_ptr(),
-        t.steps[cut:].data_ptr(), t.steps.shape[0] - cut, t.cb, t.p0_miss,
-        seg_bytes, halo_bytes, cap, surv_pos.data_ptr(),
-        surv_disp.data_ptr(), count.data_ptr(), int(bitmap), _ptr(cnt),
-        _ptr(bits), int(shift), _ptr(prev_total), _ptr(total), _stream(dev))
+        staged.data_ptr(), t.packed.data_ptr(), t.side.data_ptr(), desc_ptr,
+        len(desc), t.cb, t.p0_miss, seg_bytes, halo_bytes, cap,
+        surv_pos.data_ptr(), surv_disp.data_ptr(), count.data_ptr(),
+        int(bitmap), _ptr(cnt), _ptr(bits), int(shift), _ptr(prev_total),
+        _ptr(total), _stream(dev))
     if err:
         raise RuntimeError(f"planb_scan launch failed: CUDA error {err}")
     launches_compact_b += 1

@@ -101,6 +101,9 @@ def _launch(name: str, disp: torch.Tensor, m: int, n_counts: int,
     if disp.device.type != "cuda":
         raise ValueError(f"no probe kernel for device {disp.device}")
     _check(disp, m)
+    if disp.data_ptr() % 16:
+        raise ValueError("disp: the kernel loads 16 bytes a thread; need a "
+                         "16-byte aligned tensor")
     out = torch.empty_like(disp)
     counts = alloc(n_counts, dtype=torch.int32, device=disp.device)
     with torch.cuda.device(disp.device):

@@ -1,34 +1,39 @@
-"""Times the warp-tile kernels of the checkout this file sits in, per
-16 MiB chunk, each on its route's shape: K1 (``plan_scan``) and K1′
-(``plan_scan_compact_a``) on ``chip_smoke.py``'s two dictionaries (the 4
-shards of the first ``match_chunked`` window of a 64 MiB corpus made by
-``chip_smoke.py``'s generators from seed 0); K2 (``depth_scan``) on the
-depth path (clamav5k's 4 shards, a 6,144 B segment); K3 (``pair_scan``)
-on the pair path (lower50k's 4 shards, exact mode, 16 MiB); K5
-(``phf_scan_multi``, one launch over clamav5k's 4 shards) and K4
-(``phf_scan``, one launch a shard) on the phf path (clamav5k's first
-16 MiB window, the CLI's 4,096 + 512 B cut).  Needs one CUDA GPU:
+"""Times the hand-written kernels of the checkout this file sits in, per
+16 MiB chunk, each on its route's shape: K1 (``plan_scan``), K1′
+(``plan_scan_compact_a``) and K6 (``planb_scan``) on ``chip_smoke.py``'s
+two dictionaries (the 4 shards of the first ``match_chunked`` window of a
+64 MiB corpus made by ``chip_smoke.py``'s generators from seed 0); K2
+(``depth_scan``) on the depth path (clamav5k's 4 shards, a 6,144 B
+segment); K3 (``pair_scan``) on the pair path (lower50k's 4 shards, exact
+mode, 16 MiB); K5 (``phf_scan_multi``, one launch over clamav5k's 4
+shards) and K4 (``phf_scan``, one launch a shard) on the phf path
+(clamav5k's first 16 MiB window, the CLI's 4,096 + 512 B cut); P2
+(``probe_compact``) at its sweep's 32 Mi lanes.  Needs one CUDA GPU:
 
     python3 plan_times.py                     # every kernel
     python3 plan_times.py phf_scan depth_scan  # only these
 
 It times K1 in bitmap mode under the CLI's segment cut, in count mode and
 as a chain of 8 count scans; K1′ at ``chip_smoke``'s cut in bitmap and
-count mode; K2 in bitmap mode under the depth path's cut and exact, in
-count mode, as a chain of 8 and with ``dead_exit`` forced off; K3 in
+count mode; K6 at that cut and cap on K1′'s survivors in bitmap mode
+under the cut and exact, in count mode and as a chain of 8, with the pair
+and K1 beside it; K2 in bitmap mode under the depth path's cut and exact,
+in count mode, as a chain of 8 and with ``dead_exit`` forced off; K3 in
 bitmap and count mode and with ``dead_exit`` off; K4 and K5 in bitmap
-mode under the cut and exact, in count mode and with ``dead_exit`` off.
-And each kernel's split, through the same wrapper on reduced tables: **no
-walk** (a first table of misses and no steps: the staged read, one probe
-and the cnt / bits writes; for K4 and K5 an s0 of DEAD), **prologue** (no
-steps; K4 and K5: one step) and, for K2-K5, **step 1** (the first step
-only).  Every timed shape is first held to its plain version (exact).
-K4's and K5's shapes are also timed by the profiler's device time of
-their kernels (``utils/profile.py::trace``), the field ``*_device_ms``
-beside each ``cuda_ms`` time.  It also prints what ``nvcc -Xptxas -v``
-says of ``csrc/plan_scan.cu``, ``depth_scan.cu``, ``pair_scan.cu`` and
-``phf_scan.cu`` (registers, spills, shared memory per instantiation), and
-one JSON line.
+mode under the cut and exact, in count mode and with ``dead_exit`` off;
+P2's copy, pack and atomic pack at 1, 2 and 6 planes, beside
+``disp[disp != 0]``.  And each walk's split, through the same wrapper on
+reduced tables or inputs: **no walk** (a first table of misses and no
+steps: the staged read, one probe and the cnt / bits writes; for K4 and
+K5 an s0 of DEAD), **prologue** (no steps; K4 and K5: one step) and, for
+K2-K5, **step 1** (the first step only); for K6 **no survivors** (a
+count of 0), **cap = count**, **cap = 8 x count** and **one step** after
+the cut.  Every timed shape is first held to its plain version (exact).
+K4's, K5's, K6's and P2's shapes are also timed by the profiler's device
+time of their kernels (``utils/profile.py::trace``), the field
+``*_device_ms`` beside each ``cuda_ms`` time.  It also prints what ``nvcc
+-Xptxas -v`` says of each timed kernel's source (registers, spills,
+shared memory per instantiation), and one JSON line.
 
 It uses nothing but ``chip_smoke.py`` and the package beside it, so a copy
 of it placed in another checkout (an earlier commit unpacked with ``git
@@ -64,7 +69,8 @@ from phfpfac_tpu_torch.utils.config import PfacConfig  # noqa: E402
 from phfpfac_tpu_torch.utils.profile import cuda_ms, trace  # noqa: E402
 
 
-KERNELS = ("plan_scan", "depth_scan", "pair_scan", "phf_scan")
+KERNELS = ("plan_scan", "planb_scan", "depth_scan", "pair_scan", "phf_scan",
+           "probe_compact")
 DEPTH_SEG = 6144  # the depth path's segment: K1 takes powers of two only
 
 
@@ -132,6 +138,131 @@ def time_shard(sc, window: bytes, device) -> dict:
         bound_ms=cs.bound_ms(n_pos, tb, True),
         count_bound_ms=cs.bound_ms(n_pos, tb, False),
         n_pos=n_pos, survivors=int(surv[2]), shards=1)
+
+
+def deep_bound_ms(st, t, surv, cut, cap, seg) -> float:
+    """K6's bytes bound on this data: 8 B of (pos, disp) a survivor, one
+    int32 a window it reads, and a word of bits and of cnt read and
+    written where it ends with deep bits (count mode: none)."""
+    reads, hits = cs.deep_work(st, t, surv, cut, cap, seg)
+    n = min(int(surv[2]), cap)
+    return (8 * n + 4 * reads + 16 * hits) / cs.HBM_BYTES_PER_S * 1e3
+
+
+def time_planb(sc, window: bytes, device) -> dict:
+    """K6 on one plan shard at ``choose_compact``'s (cut, cap), on phase
+    A's own survivors: bitmap mode under the CLI's cut and exact, count
+    mode, a chain of count scans each reading the last total; the split
+    (no survivors, cap = count, cap = 8 x count, one step after the cut);
+    the pair and K1 beside it.  Every shape is first held to
+    ``planb_scan_plain`` on the same inputs, bit for bit."""
+    st, _n = cs.scan_inputs(sc, window, device)
+    t, n_pos = sc.tables, st.numel() - TILE
+    _how, cut, cap, _why = cs.choose_compact(sc.pt, n_pos)
+    seg = dict(seg_bytes=cs.SEG, halo_bytes=cs.HALO)
+    res, surv = K1.plan_scan_compact_a(st, t, cut=cut, cap=cap, **seg)
+    eres, esurv = K1.plan_scan_compact_a(st, t, cut=cut, cap=cap)
+    cres, csurv = K1.plan_scan_compact_a(st, t, cut=cut, cap=cap,
+                                         emit="count", shift=1)
+    count = int(surv[2])
+    cs.check(0 < count <= cap, f"K6: {count} survivors at cap {cap}")
+    big = 8 * count
+
+    def padded(x):
+        return torch.cat([x, x.new_zeros(max(0, big - x.numel()))])
+
+    one = K1.PlanKernelTables.from_plan(
+        dataclasses.replace(sc.pt, steps=sc.pt.steps[:cut + 1]), device)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    wide = (padded(surv[0]), padded(surv[1]), surv[2])
+    shapes = {  # name -> (tables, result, survivors, keyword arguments)
+        "": (t, res, surv, dict(cap=cap, **seg)),
+        "exact_": (t, eres, esurv, dict(cap=cap)),
+        "count_": (t, cres, csurv, dict(cap=cap, emit="count", shift=1)),
+        "zero_": (t, res, (surv[0], surv[1], zero), dict(cap=cap, **seg)),
+        "cap_eq_": (t, res, surv, dict(cap=count, **seg)),
+        "cap_8x_": (t, res, wide, dict(cap=big, **seg)),
+        "one_step_": (one, res, surv, dict(cap=cap, **seg)),
+    }
+
+    def clone(r):
+        return tuple(x.clone() for x in r) if isinstance(r, tuple) \
+            else r.clone()
+
+    out = {}
+    for what, (tt, r, sv, kw) in shapes.items():
+        got, want = clone(r), clone(r)
+        K1.planb_scan(st, tt, got, sv, cut=cut, **kw)
+        K1.planb_scan_plain(st, tt, want, sv, cut=cut, **kw)
+        same(got if isinstance(got, tuple) else [got],
+             want if isinstance(want, tuple) else [want],
+             f"K6 {what or 'bitmap'}")
+
+        def run(tt=tt, r=r, sv=sv, kw=kw):
+            K1.planb_scan(st, tt, r, sv, cut=cut, **kw)
+
+        out[f"{what}ms"] = cuda_ms(run)
+        out[f"{what}device_ms"] = device_ms(run, "planb_scan")
+
+    def chain(scan=K1.planb_scan, totals=None):
+        totals = totals or [cres.clone() for _ in range(cs.CHAIN_K)]
+        for k in range(cs.CHAIN_K):
+            scan(st, t, totals[k], csurv, cut=cut, cap=cap, emit="count",
+                 shift=1, prev_total=totals[k - 1] if k else None)
+        return totals[-1]
+
+    same([chain()], [chain(K1.planb_scan_plain)], "K6 chain")
+    totals = [cres.clone() for _ in range(cs.CHAIN_K)]
+    out["chain_ms_per_scan"] = cuda_ms(
+        lambda: chain(totals=totals)) / cs.CHAIN_K
+    dev_chain = device_ms(lambda: chain(totals=totals), "planb_scan")
+    out["chain_device_ms_per_scan"] = dev_chain and dev_chain / cs.CHAIN_K
+    kw = dict(cut=cut, cap=cap, **seg)
+    out.update(
+        pair_ms=cuda_ms(lambda: K1.plan_scan_compact(st, t, **kw)),
+        pair_device_ms=device_ms(lambda: K1.plan_scan_compact(st, t, **kw),
+                                 "plan"),
+        a_ms=cuda_ms(lambda: K1.plan_scan_compact_a(st, t, **kw)),
+        k1_ms=cuda_ms(lambda: K1.plan_scan(st, t, **seg)),
+        k1_device_ms=device_ms(lambda: K1.plan_scan(st, t, **seg),
+                               "plan_scan_kernel"),
+        bound_ms=deep_bound_ms(st, t, surv, cut, cap, cs.SEG),
+        exact_bound_ms=deep_bound_ms(st, t, esurv, cut, cap, 0),
+        n_pos=n_pos, cut=cut, cap=cap, survivors=count,
+        exact_survivors=int(esurv[2]), count_survivors=int(csurv[2]),
+        steps_after_cut=len(t.spec) - cut, shards=1)
+    return out
+
+
+def time_probe_compact(device) -> dict:
+    """P2 at the probe sweep's shape (32 Mi lanes, density 0.04) for 1, 2
+    and 6 planes: copy only, the per-tile pack and the atomic pack, by
+    ``cuda_ms`` and by the profiler's device time, beside its bytes bound
+    and ``disp[disp != 0]``.  Each held to its plain version first."""
+    from phfpfac_tpu_torch.probes import compact
+
+    lanes = compact.SWEEP_LANES
+    disp = torch.from_numpy(compact.make_disp(np.random.default_rng(0),
+                                              lanes)).to(device)
+    out = dict(lanes=lanes, density=compact.SWEEP_DENSITY,
+               bound_ms=(8 * lanes + 4 * (lanes // compact.TILE))
+               / cs.HBM_BYTES_PER_S * 1e3)
+    for m in compact.SWEEP_PLANES:
+        for what, fn, plain in (
+                ("copy", compact.probe_copy, compact.probe_copy_plain),
+                ("pack", compact.probe_compact, compact.probe_compact_plain),
+                ("atomic", compact.probe_compact_atomic,
+                 compact.probe_compact_atomic_plain)):
+            got, want = fn(disp, m), plain(disp, m)
+            if what == "atomic":  # tiles in any order: as a multiset
+                got, want = compact.sorted_live(*got), \
+                    compact.sorted_live(*want)
+            same(got, want, f"P2 {what} m={m}")
+            out[f"{what}_m{m}_ms"] = cuda_ms(lambda: fn(disp, m))
+            out[f"{what}_m{m}_device_ms"] = device_ms(lambda: fn(disp, m),
+                                                      "probe_compact")
+    out["library_ms"] = cuda_ms(lambda: disp[disp != 0])
+    return out
 
 
 def reduced_depth(dt, device):
@@ -333,7 +464,8 @@ def main() -> int:
         return 2
     kernels = [k for k in KERNELS if k in want]
     device = torch.device("cuda")
-    _build.build_all(kernels)
+    plan = {"plan_scan", "planb_scan"} & want  # K6 runs on K1′'s output
+    _build.build_all(sorted(set(kernels) | ({"plan_scan"} if plan else set())))
     rng = np.random.default_rng(0)
     out = dict(root=HERE, nvidia_smi=cs.nvidia_smi(),
                ptxas={k: ptxas_report(k) for k in kernels})
@@ -349,20 +481,24 @@ def main() -> int:
             pats = make(rng)
             corpus, _planted = cs.make_corpus(rng, pats, 64 * cs.MIB,
                                               alphabet)
-            if name == "ascii50k" and "plan_scan" not in want:
+            if name == "ascii50k" and not plan:
                 continue
             files = cs.write_inputs(tmp, name, pats, corpus, escapes)
             cfg = PfacConfig(width=4096, num_shards=4, truncation="segment")
             compiled = compile_dictionary(files[0], cfg, escapes=escapes)
-            if "plan_scan" in want:
+            if plan:
                 matcher = Matcher(compiled, cfg, device=device,
                                   train=corpus[:cs.MIB])
-                total: dict = {}
-                for _kind, sc in cs.shard_kernels(matcher):
-                    if isinstance(sc, K1.PlanShardScanner):
-                        add(total, time_shard(sc, corpus[:cs.CHUNK],
-                                              device))
-                out[name] = total
+                for kernel, timed in (("plan_scan", time_shard),
+                                      ("planb_scan", time_planb)):
+                    if kernel not in want:
+                        continue
+                    total: dict = {}
+                    for _kind, sc in cs.shard_kernels(matcher):
+                        if isinstance(sc, K1.PlanShardScanner):
+                            add(total, timed(sc, corpus[:cs.CHUNK], device))
+                    out[name if kernel == "plan_scan"
+                        else f"planb_scan/{name}"] = total
                 del matcher
             if name == "clamav5k" and "depth_scan" in want:
                 # the depth path: K1 refuses 6,144 B
@@ -392,6 +528,8 @@ def main() -> int:
                 add(total, time_pair(K3.PairShardScanner(sh, device=device),
                                      corpus, device))
             out["pair_scan/lower50k"] = total
+    if "probe_compact" in want:
+        out["probe_compact"] = time_probe_compact(device)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -7,6 +7,8 @@ interpret mode; the same tables go through
 the port's scanners.  Integer outputs, compared exactly (tolerance 0).
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -466,3 +468,141 @@ def test_compact_wrapper_rejects_bad_arguments():
                                 emit="rows")
     with pytest.raises(ValueError):
         tplan.plan_scan_compact(staged.to("meta"), c["kt"], cut=1, cap=CAP)
+
+
+# ---- phase B (K6): its plain version, its descriptors, its wrapper ---------
+
+@pytest.mark.parametrize("seg,halo", [(0, 0), (1024, 16)])
+@pytest.mark.parametrize("which", ["words", "sigs"])
+def test_planb_plain_equals_jax_phase_b(which, seg, halo):
+    """``planb_scan_plain`` against the JAX phase B itself (``_phase_b``:
+    the glue and ``_make_planb_kernel`` in interpret mode) on the same
+    survivors: the same deep bits at the same positions, and the same
+    count."""
+    c = _words_case() if which == "words" else _sig_case()
+    data, n = c["data"], len(c["data"])
+    padded = pad_input(data, 1024, c["ms"])
+    staged = _staged(c, padded, n)
+    n_pos = staged.numel() - 1024
+    cut = max(1, len(c["pt"].steps) // 3)
+    kw = dict(cut=cut, cap=CAP, seg_bytes=seg, halo_bytes=halo)
+    _res, surv = tplan.plan_scan_compact_a_plain(staged, c["kt"], **kw)
+    assert 0 < int(surv[2]) <= CAP
+    cnt = torch.zeros(n_pos, dtype=torch.int32)
+    bits = torch.zeros(n_pos, dtype=torch.int32)
+    tplan.planb_scan_plain(staged, c["kt"], (cnt, bits), surv, **kw)
+
+    jpt = c["jpt"]
+    assert jpt.p0_miss == 0  # the JAX survivor plane's dead value
+    plane = np.zeros(n_pos, np.int32)
+    plane[surv[0].numpy()] = surv[1].numpy()
+    js = jplan.PlanShardScanner(c["jc"].shards[0], interpret=True, pt=jpt,
+                                compact="off")
+    data2d = jplan.stage_pairs(
+        jnp.asarray(padded), jnp.asarray(np.int32(n)), js._code,
+        n_rows=jplan.staged_rows(len(padded) - c["ms"]), cb=jpt.code_bits)
+    with jplan._eager_if(True):
+        bits_b, pos, count = jplan._phase_b(
+            data2d, jnp.asarray(plane), jnp.asarray(jpt.packed_banks),
+            jnp.asarray(jpt.side_banks), steps_b=jpt.steps[cut:],
+            cb=jpt.code_bits, p0_miss=jpt.p0_miss, interpret=True,
+            grouped=jpt.trained, gmode=jplan._default_gmode(),
+            seg_bytes=seg, halo_bytes=halo, cap=CAP, tpc_b=8)
+    pos, bits_b = np.asarray(pos), np.asarray(bits_b)
+    keep = pos < n_pos
+    want = np.zeros(n_pos, np.int32)
+    want[pos[keep]] = bits_b[keep]
+    assert int(count) == int(surv[2])
+    assert want.any()  # the deep steps find matches here
+    np.testing.assert_array_equal(bits.numpy(), want)
+    np.testing.assert_array_equal(
+        cnt.numpy(), tplan.popcount32(torch.from_numpy(want).to(
+            torch.int64)).numpy())
+
+
+def test_planb_descriptors_are_built_once_a_cut():
+    """K6's descriptors: ``step_descriptors(spec[cut:])``, the rows of
+    the whole walk's from the cut on, kept per cut on the tables; a copy
+    of the tables starts with none."""
+    c = _words_case()
+    kt = tplan.PlanKernelTables.from_plan(c["pt"], "cpu")
+    n_steps = len(kt.spec)
+    assert n_steps >= 3
+    first = kt.deep_desc(1)
+    np.testing.assert_array_equal(
+        first, tplan.step_descriptors(kt.spec[1:], kt.cb, kt.p0_miss))
+    np.testing.assert_array_equal(first, kt.desc[1:])
+    assert kt.deep_desc(1) is first
+    last = kt.deep_desc(n_steps - 1)
+    assert last.shape == (1, len(tplan.STEP_DESC_FIELDS))
+    np.testing.assert_array_equal(
+        last, tplan.step_descriptors(kt.spec[-1:], kt.cb, kt.p0_miss))
+    assert kt.deep_desc(1) is first and kt.deep_desc(n_steps - 1) is last
+    assert last.flags.c_contiguous and not last.flags.writeable
+    other = dataclasses.replace(kt, packed=kt.packed.clone())
+    assert other.deep_desc(1) is not first
+    # the tables' operands are checked where the descriptors are built
+    bad = dataclasses.replace(kt, side=kt.side.to(torch.int64))
+    with pytest.raises(ValueError, match="side"):
+        bad.deep_desc(1)
+
+
+def _planb_call(emit="bitmap"):
+    """A K6 wrapper call that passes every check: (staged, tables,
+    result, survivors, keyword arguments), all on the CPU."""
+    c = _words_case()
+    staged = _staged(c, pad_input(c["data"], 1024, c["ms"]),
+                     len(c["data"]))
+    kw = dict(cut=1, cap=CAP, emit=emit, seg_bytes=0, halo_bytes=0,
+              shift=0, prev_total=None)
+    res, (pos, disp, count) = tplan.plan_scan_compact_a_plain(
+        staged, c["kt"], cut=1, cap=CAP, emit=emit)
+    pad = torch.zeros(CAP - pos.numel(), dtype=torch.int32)
+    surv = (torch.cat([pos, pad]), torch.cat([disp, pad]), count)
+    return staged, c["kt"], res, surv, kw
+
+
+def _bad_operands():
+    """(what, emit, how to spoil a good call) for every operand K6's
+    wrapper checks on each call."""
+    i64 = torch.int64
+
+    def stale(x):  # a strided view: not contiguous
+        return torch.stack([x, x], -1)[..., 0]
+
+    return [
+        ("staged", "bitmap", lambda a: a.update(staged=a["staged"].to(i64))),
+        ("staged", "bitmap", lambda a: a.update(staged=stale(a["staged"]))),
+        ("tables", "bitmap", lambda a: a.update(
+            staged=a["staged"].to("meta"))),
+        ("surv_pos", "bitmap", lambda a: a.update(surv=(
+            a["surv"][0].to(i64), *a["surv"][1:]))),
+        ("surv_disp", "bitmap", lambda a: a.update(surv=(
+            a["surv"][0], stale(a["surv"][1]), a["surv"][2]))),
+        ("cap", "bitmap", lambda a: a.update(surv=(
+            a["surv"][0][:100], a["surv"][1][:100], a["surv"][2]))),
+        ("count", "bitmap", lambda a: a.update(surv=(
+            *a["surv"][:2], a["surv"][2].to(i64)))),
+        ("cnt", "bitmap", lambda a: a.update(result=(
+            stale(a["result"][0]), a["result"][1]))),
+        ("bits", "bitmap", lambda a: a.update(result=(
+            a["result"][0], a["result"][1].to(i64)))),
+        ("total", "count", lambda a: a.update(
+            result=a["result"].to(torch.int32))),
+        ("prev_total", "count", lambda a: a["kw"].update(
+            prev_total=torch.zeros(1, dtype=torch.int32))),
+    ]
+
+
+@pytest.mark.parametrize("what,emit,spoil", _bad_operands(),
+                         ids=[f"{w}-{i}" for i, (w, _e, _s)
+                              in enumerate(_bad_operands())])
+def test_planb_wrapper_refuses_each_bad_operand(what, emit, spoil):
+    """The K6 wrapper's own checks, before any launch: each operand a
+    call brings, and tables on another device than the stream."""
+    staged, kt, res, surv, kw = _planb_call(emit)
+    a = dict(staged=staged, result=res, surv=surv, kw=kw)
+    spoil(a)
+    with pytest.raises(ValueError):
+        tplan._planb_scan_cuda(a["staged"], kt, a["result"], a["surv"],
+                               **a["kw"])

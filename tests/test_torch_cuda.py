@@ -369,6 +369,77 @@ def test_compacted_kernels_equal_plain(name, emit, dev):
     assert K1.launches_compact_b == b0 + 2 * runs
 
 
+def _clone(res):
+    return tuple(x.clone() for x in res) if isinstance(res, tuple) \
+        else res.clone()
+
+
+def _k6_equals_plain(staged, t, res, surv, **kw):
+    """K6 and its plain version on copies of phase A's result ``res``:
+    the same merged result, bit for bit."""
+    got, want = _clone(res), _clone(res)
+    K1.planb_scan(staged, t, got, surv, **kw)
+    K1.planb_scan_plain(staged, t, want, surv, **kw)
+    if isinstance(got, tuple):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        assert int(got) == int(want)
+
+
+def _fed(pos, disp, cap, count=None):
+    """Survivor buffers of ``cap`` entries holding ``pos`` / ``disp``
+    first, and their count (the entries' number unless given)."""
+    pad = torch.zeros(max(0, cap - pos.numel()), dtype=torch.int32,
+                      device=pos.device)
+    n = pos.numel() if count is None else count
+    return (torch.cat([pos, pad]), torch.cat([disp, pad]),
+            torch.tensor(n, dtype=torch.int32, device=pos.device))
+
+
+@pytest.mark.parametrize("seg", [(0, 0), (4096, 512)])
+@pytest.mark.parametrize("emit", ["bitmap", "count"])
+def test_planb_kernel_at_every_survivor_count(emit, seg, dev):
+    """K6 against its plain version on phase A's result and survivors:
+    none, one, the window's last ones (their windows read up to pos + 31,
+    past the input into the staged spare tile), cap = count, cap = 8 x
+    count, count > cap, and in count mode a chain that reads each last
+    total; the survivors of a window where most walk to the last step."""
+    ps, staged = _deep_window(dev, tail=True)
+    t = ps.tables
+    n_pos = staged.numel() - 1024
+    kw = dict(cut=2, emit=emit, seg_bytes=seg[0], halo_bytes=seg[1],
+              shift=1)
+    res, (pos, disp, count) = K1.plan_scan_compact_a_plain(
+        staged, t, cap=n_pos, **kw)
+    n = int(count)
+    assert n > 64 and int(pos[-1]) >= n_pos - 32
+    b0 = K1.launches_compact_b
+    block = K1.COMPACT_BLOCK
+    cases = [(pos[:0], disp[:0], block), (pos[:1], disp[:1], block),
+             (pos[-32:], disp[-32:], block), (pos, disp, n),
+             (pos, disp, 8 * n)]
+    for p, d, cap in cases:
+        _k6_equals_plain(staged, t, res, _fed(p, d, cap), cap=cap, **kw)
+    # count > cap: the buffers hold the first cap, the count is the true
+    cap = n // 3
+    _k6_equals_plain(staged, t, res, _fed(pos[:cap], disp[:cap], cap, n),
+                     cap=cap, **kw)
+    calls = len(cases) + 1
+    if emit == "count":
+        surv = _fed(pos, disp, n)
+        got = [res.clone() for _ in range(3)]
+        want = [res.clone() for _ in range(3)]
+        for k in range(3):  # each scan's shift parity from the last total
+            K1.planb_scan(staged, t, got[k], surv, cap=n,
+                          prev_total=got[k - 1] if k else None, **kw)
+            K1.planb_scan_plain(staged, t, want[k], surv, cap=n,
+                                prev_total=want[k - 1] if k else None, **kw)
+            assert int(got[k]) == int(want[k])
+        calls += 3
+    torch.cuda.synchronize()
+    assert K1.launches_compact_b == b0 + calls
+
+
 def test_compacted_chain_reads_the_previous_total(dev):
     ps, staged, _ds, _st2, _n = _scanners("dense", dev, True)
     t = ps.tables
@@ -494,16 +565,20 @@ def test_tile_kernel_equals_plain_at_every_tile_geometry(name, n_pos, dev):
     assert K1.launches == before + calls  # one launch per call
 
 
-def _deep_window(dev):
+def _deep_window(dev, tail=False):
     """All 32 rotations of one 32 B pattern over that pattern repeated,
     then random text: in the first half every walker lives through every
-    step, so the packed lists stay full for 31 rounds."""
+    step, so the packed lists stay full for 31 rounds.  With ``tail`` the
+    text ends with the pattern twice, at the end of a whole number of
+    staging tiles, so walkers live at the window's last positions."""
     rng = np.random.default_rng(5)
     pat = bytes(rng.integers(97, 123, 32, dtype=np.uint8))
     words = list(dict.fromkeys(pat[i:] + pat[:i] for i in range(32)))
     words += [bytes(rng.integers(97, 123, int(rng.integers(2, 9)),
                                  dtype=np.uint8)) for _ in range(300)]
     data = pat * 1024 + bytes(rng.integers(97, 123, 1 << 15, dtype=np.uint8))
+    if tail:
+        data = data[:-64] + pat * 2
     return _plan_scanner(words, data, dev)
 
 
@@ -616,6 +691,44 @@ def test_compact_probe_equals_plain(m, dev):
         # tiles arrive in any order: the same values, as a multiset
         assert torch.equal(torch.sort(out[:n]).values,
                            torch.sort(want[:n]).values)
+
+
+@pytest.mark.parametrize("m", [1, 2, 6])
+def test_compact_probe_at_tile_and_warp_edges(m, dev):
+    """P2 where only each tile's last lane is live (its planes run off
+    the tile), where only the lanes about each warp's edge are (their
+    planes come from the next warp's words), all lanes and none, over
+    more tiles than the card holds blocks (the persistent loop); and the
+    wrappers refuse a view that is not 16-byte aligned."""
+    from phfpfac_tpu_torch.probes import compact
+
+    T, tiles = compact.TILE, 3000
+    rng = np.random.default_rng(m)
+    vals = rng.integers(1, 1 << 13, tiles * T).astype(np.int32)
+    lanes = np.arange(tiles * T) % T
+    at_edges = np.isin(lanes % 128, (0, 1, 2, 125, 126, 127)) | \
+        (lanes >= T - 8)
+    hosts = (np.where(lanes == T - 1, vals, 0), np.where(at_edges, vals, 0),
+             vals, np.zeros_like(vals))
+    for host in hosts:
+        disp = torch.from_numpy(host.astype(np.int32)).to(dev)
+        for fn, plain in ((compact.probe_compact,
+                           compact.probe_compact_plain),
+                          (compact.probe_copy, compact.probe_copy_plain)):
+            got, want = fn(disp, m), plain(disp, m)
+            assert torch.equal(got[0], want[0]) and \
+                torch.equal(got[1], want[1]), fn.__name__
+        assert all(torch.equal(g, w) for g, w in zip(
+            compact.sorted_live(*compact.probe_compact_atomic(disp, m)),
+            compact.sorted_live(*compact.probe_compact_atomic_plain(disp,
+                                                                    m))))
+    flat = torch.zeros(2 * T + 4, dtype=torch.int32, device=dev)
+    view = flat[1:1 + 2 * T]
+    assert view.data_ptr() % 16
+    for fn in (compact.probe_compact, compact.probe_copy,
+               compact.probe_compact_atomic):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(view, m)
 
 
 def test_probe_sweeps_hold_every_timed_shape_to_its_plain_version(dev):

@@ -109,6 +109,69 @@ def test_compact_plain_equals_numpy_per_tile(m, density):
                                   everything)
 
 
+def _kernel_layout(tile_disp, m):
+    """A numpy model of csrc/probe_compact.cu's work on one tile: thread
+    t holds lanes 4t..4t+3 (one int4); its neighbours' words come by
+    shuffles inside a warp and from memory across a warp's edge (zeros
+    past the tile); its exclusive slot is three ballots of its live
+    count's bits plus the earlier warps' totals.  -> (folded, packed,
+    count) as the kernel writes them."""
+    threads = compact.TILE // 4
+    words = tile_disp.reshape(threads, 4)
+    zero = np.zeros(4, np.int32)
+
+    def word(t):
+        return words[t] if t < threads else zero
+
+    folded = np.zeros((threads, 4), np.int32)
+    for t in range(threads):
+        lane = t % 32
+        n1 = words[t + 1] if lane < 31 else word(t + 1)  # shfl / memory
+        n2 = words[t + 2] if lane < 30 else word(t + 2)
+        w = np.concatenate([words[t], n1, n2])
+        for k in range(4):
+            folded[t, k] = np.bitwise_xor.reduce(w[k:k + m])
+    live = words != 0
+    c = live.sum(1)
+    slots = np.zeros(threads, np.int64)
+    warp_tot = []
+    for w0 in range(0, threads, 32):
+        cw = c[w0:w0 + 32]
+        ballots = [(cw >> b) & 1 for b in range(3)]  # a lane a bit
+        for lane in range(32):
+            slots[w0 + lane] = sum((1 << b) * int(ballots[b][:lane].sum())
+                                   for b in range(3))
+        warp_tot.append(sum((1 << b) * int(ballots[b].sum())
+                            for b in range(3)))
+    packed = np.zeros(compact.TILE, np.int32)
+    for t in range(threads):
+        slot = slots[t] + sum(warp_tot[:t // 32])
+        for k in range(4):
+            if live[t, k]:
+                packed[slot] = folded[t, k]
+                slot += 1
+    return folded.reshape(-1), packed, sum(warp_tot)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.04, 0.5, 1.0])
+@pytest.mark.parametrize("m", [1, 2, 5, 6, 8])
+def test_kernel_layout_equals_the_plain_version(m, density):
+    """What the P2 kernel computes by its thread layout (four lanes a
+    thread, neighbours by shuffle and across warp edges, the ballot
+    scan) is the plain versions' per-tile fold and pack."""
+    rng = np.random.default_rng(m + 10)
+    disp = compact.make_disp(rng, 2 * compact.TILE, density)
+    disp[compact.TILE - 1] = 77  # the tile's last lane live
+    copied, _firsts = compact.probe_copy_plain(torch.from_numpy(disp), m)
+    out, counts = compact.probe_compact_plain(torch.from_numpy(disp), m)
+    for t in range(2):
+        sl = slice(t * compact.TILE, (t + 1) * compact.TILE)
+        folded, packed, count = _kernel_layout(disp[sl], m)
+        np.testing.assert_array_equal(folded, copied[sl].numpy())
+        np.testing.assert_array_equal(packed, out[sl].numpy())
+        assert count == int(counts[t])
+
+
 def test_compact_with_one_plane_is_the_tiles_nonzeros():
     rng = np.random.default_rng(9)
     disp = compact.make_disp(rng, compact.TILE, 0.3)
