@@ -17,7 +17,8 @@ two probe kernels (parity and their sweeps), the device mesh with four
 cells on the one card (plan, compacted plan, turbo and depth meshes),
 two cooperating CLI processes over gloo, ``--profile`` and the
 multi-device dry run; then a soak of random dictionaries through the
-scan kernels (``soak_phase``; ``--soak`` runs it alone); checks every
+scan kernels and through every route of ``chip_fuzz.py`` at drawn
+geometries (``soak_phase``; ``--soak`` runs it alone); checks every
 output, times the kernels and prints one JSON line per phase.  The last line is
 ``{"ok": true, "device": {...}}``; any failed check raises and exits
 non-zero.  Without a GPU, or without the package beside it, it exits
@@ -1500,13 +1501,15 @@ SOAK_DEPTH_GEOMS = ((512, 64), (6144, 512), (100, 3), (0, 0))
 SOAK_SEG = (512, 64)  # Matcher.match_chunked's segment cut in the soak
 
 
-def soak_case(seed: int, tmp: str):
+def soak_case(seed: int, tmp: str, cfg=None, size: int = SOAK_BYTES):
     """One seed's inputs, from a numpy generator seeded by it: (kind,
     compiled dictionary, the patterns the oracle takes, corpus).  The
     kinds rotate: a small alphabet (the dense prologue), a mid alphabet
     with two patterns of 40-64 B (the s0 prologue and the long-pattern
     split), 6,000-9,000 random byte signatures and one of 33-40 B (s0x),
-    class patterns (``--charset``); each corpus holds planted patterns."""
+    class patterns (``--charset``); each corpus of ``size`` bytes holds
+    planted patterns, one in 512 B (at least 3, at most 2,000).  ``cfg``
+    defaults to width 4096, 2 shards."""
     from phfpfac_tpu_torch.compile.tables import (
         compile_class_patterns,
         compile_patterns,
@@ -1517,11 +1520,12 @@ def soak_case(seed: int, tmp: str):
 
     rng = np.random.default_rng(10_000 + seed)
     kind = SOAK_KINDS[seed % len(SOAK_KINDS)]
-    cfg = PfacConfig(width=4096, num_shards=2)
+    cfg = cfg or PfacConfig(width=4096, num_shards=2)
+    plants = min(2000, max(3, size // 512))
     count = int(rng.integers(500, 3000))
     if kind == "class":
         specs, plain = make_class_specs(rng, count=count, again=20)
-        corpus, _ = make_corpus(rng, plain, SOAK_BYTES, LOWER, plants=2000)
+        corpus, _ = make_corpus(rng, plain, size, LOWER, plants=plants)
         pat_file, _ = write_inputs(tmp, f"soak{seed}", specs, corpus, False)
         cps = read_class_patterns(pat_file)
         return kind, compile_class_patterns(cps, cfg), cps, corpus
@@ -1546,7 +1550,7 @@ def soak_case(seed: int, tmp: str):
         if kind == "s0":  # last: make_corpus plants the last three first
             pats += [bytes(rng.choice(alphabet, int(rng.integers(40, 65))))
                      for _ in range(2)]
-    corpus, _ = make_corpus(rng, pats, SOAK_BYTES, alphabet, plants=2000)
+    corpus, _ = make_corpus(rng, pats, size, alphabet, plants=plants)
     compiled = compile_patterns(
         [Pattern(i + 1, p) for i, p in enumerate(pats)], cfg)
     return kind, compiled, [Pattern(i + 1, p) for i, p in enumerate(pats)], \
@@ -1812,7 +1816,14 @@ def soak_phase(device) -> dict:
     against their plain versions, and ``Matcher.match_chunked`` on the
     card under a 512 + 64 B segment cut and in exact mode against the
     host oracle, and the compacted ``PlanMeshMatcher`` against it
-    (``soak_mesh``).  The first mismatch fails the run."""
+    (``soak_mesh``).  Then, a seed, every route of ``chip_fuzz.py`` at
+    one geometry it draws (exact, segment and charset arms in turn, on
+    corpora of at most SOAK_E2E_BYTES): one-shot ``match`` with a ragged
+    ``input_size``, ``match_chunked`` and the device-resident loop, the
+    stream at random feed sizes, ``match_many``, ``count_matches``, the
+    mesh matchers and the CLI's result file, each against the oracle.
+    The first mismatch fails the run."""
+    import chip_fuzz
     from phfpfac_tpu_torch.ops import depth as K2
     from phfpfac_tpu_torch.ops import pair as K3
     from phfpfac_tpu_torch.ops import plan as K1
@@ -1824,6 +1835,7 @@ def soak_phase(device) -> dict:
     checks = dict(plan_scan=0, depth_scan=0, pair_scan=0, phf_scan=0,
                   phf_scan_multi=0, end_to_end=0, plan_mesh=0)
     p0_modes, kinds = set(), []
+    routes, routes_refused, geometries = {}, {}, []
     refused = dict(plan=0, depth=0, pair=0, phf=0, plan_mesh=0)
     cfgs = {"segment": PfacConfig(width=4096, num_shards=2,
                                   truncation="segment",
@@ -1884,13 +1896,30 @@ def soak_phase(device) -> dict:
             checks["phf_scan"] += c4
             checks["phf_scan_multi"] += c5
             refused["phf"] += r
+            fz = chip_fuzz.run_seed(
+                seed, chip_fuzz.ARMS[seed % len(chip_fuzz.ARMS)], device,
+                tmp, SOAK_E2E_BYTES)
+            check(not fz.failures, f"soak seed {seed}: chip_fuzz routes "
+                                   f"failed {fz.failures[:1]}")
+            for k, v in fz.checks.items():
+                routes[k] = routes.get(k, 0) + v
+            for k, v in fz.refused.items():
+                routes_refused[k] = routes_refused.get(k, 0) + len(v)
+            geometries.append({k: fz.g[k] for k in (
+                "source", "num_shards", "truncation", "segment_bytes",
+                "halo_bytes", "input_size", "chunk_bytes")})
     check(p0_modes == {"dense", "s0", "s0x"},
           f"soak: the generators reached the prologues {sorted(p0_modes)}")
     check(all(checks.values()), f"soak: a kernel went unchecked {checks}")
+    check(all(routes.get(k) for k in chip_fuzz.ROUTES),
+          f"soak: a route went unchecked {routes}")
     return dict(seeds=SOAK_SEEDS, kinds=kinds, corpus_bytes=SOAK_BYTES,
                 end_to_end_bytes=SOAK_E2E_BYTES, checks=checks,
                 total_checks=sum(checks.values()), p0_modes=sorted(p0_modes),
-                refused=refused, seconds=time.perf_counter() - t0)
+                refused=refused, routes=routes,
+                route_checks=sum(routes.values()),
+                routes_refused=routes_refused, geometries=geometries,
+                seconds=time.perf_counter() - t0)
 
 
 # ---- the mesh, the two-rank run, --profile, the dry run ----------------------

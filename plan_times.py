@@ -29,9 +29,10 @@ K5 an s0 of DEAD), **prologue** (no steps; K4 and K5: one step) and, for
 K2-K5, **step 1** (the first step only); for K6 **no survivors** (a
 count of 0), **cap = count**, **cap = 8 x count** and **one step** after
 the cut.  Every timed shape is first held to its plain version (exact).
-K4's, K5's, K6's and P2's shapes are also timed by the profiler's device
-time of their kernels (``utils/profile.py::trace``), the field
-``*_device_ms`` beside each ``cuda_ms`` time.  It also prints what ``nvcc
+K4's, K5's, K6's and P2's shapes, and K1's, K1′'s, K2's and K3's whole
+walks in each mode, are also timed by the profiler's device time of their
+kernels (``utils/profile.py::trace``), the field ``*_device_ms`` beside
+each ``cuda_ms`` time.  It also prints what ``nvcc
 -Xptxas -v`` says of each timed kernel's source (registers, spills,
 shared memory per instantiation), and one JSON line.
 
@@ -124,11 +125,18 @@ def time_shard(sc, window: bytes, device) -> dict:
         same(K1.plan_scan(st, tt, **seg), K1.plan_scan_plain(st, tt, **seg),
              what)
     tb = cs.table_bytes(t)
+    dev_chain = device_ms(chain, "plan_scan")
     return dict(
         ms=cuda_ms(lambda: K1.plan_scan(st, t, **seg)),
+        device_ms=device_ms(lambda: K1.plan_scan(st, t, **seg), "plan_scan"),
         count_ms=cuda_ms(lambda: K1.plan_scan(st, t, emit="count")),
+        count_device_ms=device_ms(lambda: K1.plan_scan(st, t, emit="count"),
+                                  "plan_scan"),
         chain_ms_per_scan=cuda_ms(chain) / cs.CHAIN_K,
+        chain_device_ms_per_scan=dev_chain and dev_chain / cs.CHAIN_K,
         a_ms=cuda_ms(lambda: K1.plan_scan_compact_a(st, t, **kw)),
+        a_device_ms=device_ms(lambda: K1.plan_scan_compact_a(st, t, **kw),
+                              "plan_scan"),
         count_a_ms=cuda_ms(lambda: K1.plan_scan_compact_a(
             st, t, cut=cut, cap=cap, emit="count")),
         prologue_ms=cuda_ms(
@@ -303,13 +311,24 @@ def time_depth(sc, window: bytes, device) -> dict:
 
     same([chain()], [chain(K2.depth_scan_plain)], "K2 chain")
     tb = cs.table_bytes(t)
+    dev_chain = device_ms(chain, "depth_scan")
     return dict(
         ms=cuda_ms(lambda: K2.depth_scan(st, t, **seg)),
+        device_ms=device_ms(lambda: K2.depth_scan(st, t, **seg),
+                            "depth_scan"),
         exact_ms=cuda_ms(lambda: K2.depth_scan(st, t, **exact)),
+        exact_device_ms=device_ms(lambda: K2.depth_scan(st, t, **exact),
+                                  "depth_scan"),
         count_ms=cuda_ms(lambda: K2.depth_scan(st, t, emit="count",
                                                **exact)),
+        count_device_ms=device_ms(
+            lambda: K2.depth_scan(st, t, emit="count", **exact),
+            "depth_scan"),
         chain_ms_per_scan=cuda_ms(chain) / cs.CHAIN_K,
+        chain_device_ms_per_scan=dev_chain and dev_chain / cs.CHAIN_K,
         dead_exit_off_ms=cuda_ms(lambda: K2.depth_scan(st, off, **seg)),
+        dead_exit_off_device_ms=device_ms(
+            lambda: K2.depth_scan(st, off, **seg), "depth_scan"),
         **{f"{what}_ms": cuda_ms(lambda tt=tt: K2.depth_scan(st, tt, **seg))
            for what, tt in reduced.items()},
         exact_no_walk_ms=cuda_ms(
@@ -349,8 +368,13 @@ def time_pair(sc, window: bytes, device) -> dict:
     tb = cs.table_bytes(t)
     return dict(
         ms=cuda_ms(lambda: K3.pair_scan(st, t)),
+        device_ms=device_ms(lambda: K3.pair_scan(st, t), "pair_scan"),
         count_ms=cuda_ms(lambda: K3.pair_scan(st, t, emit="count", shift=1)),
+        count_device_ms=device_ms(
+            lambda: K3.pair_scan(st, t, emit="count", shift=1), "pair_scan"),
         dead_exit_off_ms=cuda_ms(lambda: K3.pair_scan(st, off)),
+        dead_exit_off_device_ms=device_ms(lambda: K3.pair_scan(st, off),
+                                          "pair_scan"),
         **{f"{what}_ms": cuda_ms(lambda tt=tt: K3.pair_scan(st, tt))
            for what, tt in reduced.items()},
         bound_ms=cs.bound_ms(n_pos, tb, True),
@@ -358,18 +382,24 @@ def time_pair(sc, window: bytes, device) -> dict:
         n_pos=n_pos, shards=1, dead_exit=int(t.dead_exit))
 
 
-def device_ms(fn, name: str, reps: int = 5) -> float | None:
-    """Mean device time of the kernels named ``name`` that ``fn``
-    launches, in ms, from a ``torch.profiler`` trace of ``reps`` calls
-    after a warm-up (None where the trace shows no device time)."""
+def device_ms(fn, name: str, reps: int = 5, tries: int = 3):
+    """Mean device time of the kernels whose name holds ``name`` that
+    ``fn`` launches, in ms, from a ``torch.profiler`` trace of ``reps``
+    calls after a warm-up, traced again (up to ``tries`` times) where a
+    trace shows no device time for them; None if none does.  (A copy of
+    ``chip_smoke.py::device_ms``, so that this file times checkouts made
+    before it.)"""
     fn()
     torch.cuda.synchronize()
-    with trace() as mt:
-        for _ in range(reps):
-            fn()
-    secs = sum(v for k, v in mt.device_seconds_by_name().items()
-               if name in k)
-    return 1e3 * secs / reps if secs else None
+    for _ in range(tries):
+        with trace() as mt:
+            for _ in range(reps):
+                fn()
+        secs = sum(v for k, v in mt.device_seconds_by_name().items()
+                   if name in k)
+        if secs:
+            return 1e3 * secs / reps
+    return None
 
 
 def reduced_phf(pts, device):
