@@ -20,7 +20,9 @@ dictionary allows, on the device, and holds each to ``oracle/ac.py``
 ``Matcher.match``, ``match_chunked``, the device-resident chunk loop,
 ``StreamMatcher``, ``match_many``, ``count_matches``,
 ``PlanMeshMatcher`` and ``PallasMeshMatcher`` on 2 and 4 cells,
-``MultiHostMatcher`` on 4, and the CLI's result file.  Dictionaries: ``tests/test_fuzz.py``'s four
+``MultiHostMatcher`` on 4, the CLI's result file, and the CLI with
+``--save-tables`` then ``--load-tables`` (no pattern file read).
+Dictionaries: ``tests/test_fuzz.py``'s four
 flavors and ``chip_smoke.py::soak_case``'s kinds; ``--charset`` takes
 ``bench/tpu_fuzz.py``'s random class dictionaries and ``soak_case``'s
 class kind.
@@ -61,7 +63,8 @@ PLAIN_SOURCES = ("fuzz:abcd", "fuzz:english", "fuzz:dense40", "fuzz:binary",
 CLASS_SOURCES = ("classes:narrow", "classes:lower", "classes:binary",
                  "soak:class")
 ROUTES = ("match", "match_chunked", "device_data", "stream", "match_many",
-          "count_matches", "plan_mesh", "pallas_mesh", "multihost", "cli")
+          "count_matches", "plan_mesh", "pallas_mesh", "multihost", "cli",
+          "tables")
 LARGE_ROUTES = ("large_turbo", "large_oracle")
 # how the Matcher routes pick their kernels: as they do (the plan kernel
 # first), with the plan kernel withheld (K3 in exact mode, else K2), or
@@ -567,38 +570,75 @@ def route_multihost(s: Seed, case: Case, cfg, device, want) -> None:
            want, f"engine {mh.last_engine}")
 
 
-def route_cli(s: Seed, case: Case, cfg, device, want, tmp: str) -> None:
-    """``cli.main`` on files the seed writes: the pattern file escaped
-    (``--escapes``; class patterns with ``--charset``), the input file
-    the corpus head plus the byte the CLI drops.  Its result file must
-    be the oracle's matches as the CLI renders them, under the CLI's
-    own cut (4,096 + 512 B, or ``--exact``)."""
-    from phfpfac_tpu_torch import cli
+def cli_case(s: Seed, case: Case, cfg, device, want, tmp: str, tag: str):
+    """The seed's files for ``cli.main`` (the pattern file escaped,
+    ``--escapes``; class patterns with ``--charset``; the input file the
+    corpus head plus the byte the CLI drops), the arguments after the
+    pattern file, and the oracle's matches as the CLI renders them under
+    its own cut (4,096 + 512 B, or ``--exact``)."""
     from phfpfac_tpu_torch.parallel.merge import render_result_file
     from phfpfac_tpu_torch.utils.config import PfacConfig
 
     n = min(s.g["input_size"], CLI_BYTES)
-    name = f"fuzz{s.seed}"
+    name = f"fuzz{s.seed}{tag}"
     pat_file, in_file = cs.write_inputs(tmp, name, case.lines,
                                         case.data[:n], not case.charset)
-    out = os.path.join(tmp, f"{name}.out")
     exact = cfg.truncation != "segment"
     ccfg = PfacConfig(width=cfg.width, num_shards=cfg.num_shards,
                       truncation="none" if exact else "segment")
-    cli.main([pat_file, "1", str(cfg.width), in_file, "-o", out, "--quiet",
-              "--num-shards", str(cfg.num_shards),
-              "--device", torch.device(device).type,
-              "--charset" if case.charset else "--escapes",
-              *(["--exact"] if exact else [])])
+    args = ["1", str(cfg.width), in_file, "--quiet",
+            "--num-shards", str(cfg.num_shards),
+            "--device", torch.device(device).type,
+            "--charset" if case.charset else "--escapes",
+            *(["--exact"] if exact else [])]
     if ccfg == cfg:
         exp = within(case, want, 0, n)
     else:
         exp = oracle(case, case.data[:n], ccfg)
+    return pat_file, args, exp, render_result_file(exp)
+
+
+def same_file(s: Seed, route: str, out: str, exp, text: str,
+              what: str) -> None:
+    """One check: the result file ``out`` is ``text``, the oracle's."""
     with open(out) as f:
-        text = f.read()
-    ok = text == render_result_file(exp)
-    s.check("cli", ok, "GPU_match_result.txt differs from the oracle's",
+        ok = f.read() == text
+    s.check(route, ok, what,
             None if ok else first_difference(cs.read_output(out), exp))
+
+
+def route_cli(s: Seed, case: Case, cfg, device, want, tmp: str) -> None:
+    """``cli.main`` on files the seed writes; its result file must be the
+    oracle's matches as the CLI renders them (``cli_case``)."""
+    from phfpfac_tpu_torch import cli
+
+    pat_file, args, exp, text = cli_case(s, case, cfg, device, want, tmp,
+                                         "")
+    out = os.path.join(tmp, f"fuzz{s.seed}.out")
+    cli.main([pat_file, *args, "-o", out])
+    same_file(s, "cli", out, exp, text,
+              "GPU_match_result.txt differs from the oracle's")
+
+
+def route_tables(s: Seed, case: Case, cfg, device, want, tmp: str) -> None:
+    """``cli.main`` with ``--save-tables`` (saved again with the plan
+    tables its scan built), then with ``--load-tables`` and a pattern
+    file that does not exist, so that a read of it fails: both result
+    files must be the oracle's (``cli_case``)."""
+    from phfpfac_tpu_torch import cli
+
+    pat_file, args, exp, text = cli_case(s, case, cfg, device, want, tmp,
+                                         "t")
+    npz = os.path.join(tmp, f"fuzz{s.seed}.npz")
+    outs = [os.path.join(tmp, f"fuzz{s.seed}.{k}.out")
+            for k in ("save", "load")]
+    cli.main([pat_file, *args, "-o", outs[0], "--save-tables", npz])
+    same_file(s, "tables", outs[0], exp, text,
+              "--save-tables: the result file differs from the oracle's")
+    cli.main([os.path.join(tmp, "no-such-pattern-file"), *args, "-o",
+              outs[1], "--load-tables", npz])
+    same_file(s, "tables", outs[1], exp, text,
+              "--load-tables: the result file differs from the oracle's")
 
 
 def launch_counts() -> dict:
@@ -649,7 +689,9 @@ def run_seed(seed: int, arm: str, device, tmp: str,
                 ("pallas_mesh", route_pallas_mesh,
                  (s, case, cfg, device, want)),
                 ("multihost", route_multihost, (s, case, cfg, device, want)),
-                ("cli", route_cli, (s, case, cfg, device, want, tmp))):
+                ("cli", route_cli, (s, case, cfg, device, want, tmp)),
+                ("tables", route_tables,
+                 (s, case, cfg, device, want, tmp))):
             s.run(route, fn, *a)
         g["engines"] = engines_of(m)
     return s
@@ -663,11 +705,15 @@ def scanners(how: str):
     from phfpfac_tpu_torch.compile.depth import DepthUnsupported
     from phfpfac_tpu_torch.parallel import matcher
 
-    def withheld(*_a, **_kw):
-        raise DepthUnsupported("the plan scanner is withheld by the soak")
+    class Withheld(matcher.PlanShardScanner):
+        """A plan scanner that refuses every shard (a class, so that
+        ``Matcher.built_plan_tables``'s ``isinstance`` still works)."""
+
+        def __init__(self, *_a, **_kw):
+            raise DepthUnsupported("the plan scanner is withheld by the soak")
 
     if how == "no_plan":
-        return cs.swapped(matcher, "PlanShardScanner", withheld)
+        return cs.swapped(matcher, "PlanShardScanner", Withheld)
     if how == "multi":
         return cs.swapped(matcher.Matcher, "_shard_scanner_one",
                           lambda *_a, **_kw: None)

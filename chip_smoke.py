@@ -7,8 +7,9 @@ Run on a machine with one CUDA GPU, from the repository root:
 It builds the CUDA kernels from ``phfpfac_tpu_torch/csrc``, holds each
 against its plain torch version on the card, drives the gphf CLI main
 path (``phfpfac_tpu_torch.cli.main``) over two dictionaries at the size
-users run, then the paths of the other kernels and engines (the depth
-path, the exact-mode pair path, the banked-PHF path, ``--engine
+users run, its match phase a stage at a time (``chip_e2e.py``'s
+``stages`` arm, once), then the paths of the other kernels and engines
+(the depth path, the exact-mode pair path, the banked-PHF path, ``--engine
 turbo|jnp``, the count scanners), then the two-phase compacted plan scan
 through ``Matcher.match_chunked`` on both dictionaries, the
 device-resident chunk loop, ``StreamMatcher`` / ``match_many``, the
@@ -2145,6 +2146,29 @@ def profile_phase(d, tmp):
                 output_unchanged=True)
 
 
+def stages_phase(name, d, device) -> dict:
+    """``chip_e2e.py``'s ``stages`` arm once (one timed run after a
+    warm-up) on a main-path deployment: ``match_chunked`` a stage at a
+    time, held to the CLI's rows, the oracle around every chunk boundary
+    and the plants; every wrapped function reached (the host tail only
+    where a shard splits)."""
+    import chip_e2e as e2e
+
+    dep = e2e.Deployment(
+        name=name, pats=d["pats"], plen=e2e.pattern_lengths(d["pats"]),
+        corpus=d["corpus"], planted=d["planted"], files=d["files"],
+        escapes=d["escapes"], cfg=d["cfg"], compiled=d["compiled"],
+        matcher=d["matcher"], cli_rows=d["got"])
+    r = e2e.stages(e2e.Run(device, reps=1), dep, reps=1)
+    want = set(e2e.WRAPPED)
+    if all(kind != "split" for kind, _ in d["kinds"]):
+        want.discard("_host_literal_one")
+    reached = {k for k, v in r["reached"].items() if v}
+    check(reached == want, f"{name}: the stage wrappers reached "
+          f"{sorted(reached)}, not {sorted(want)}")
+    return r
+
+
 def host_seconds(fn) -> float:
     """Host-clock seconds of ``fn`` up to the end of its device work."""
     torch.cuda.synchronize()
@@ -2385,6 +2409,10 @@ def main() -> int:
                       f"{name}: 256 KiB output differs from the oracle")
             emit("oracle", dictionary=name, bytes=len(small),
                  matches=len(want), identical=True)
+
+        # the match phase a stage at a time
+        for name, d in dicts.items():
+            emit("stages", dictionary=name, **stages_phase(name, d, device))
 
         # the depth kernel's path: a segment geometry the plan kernel
         # does not take (not a power of two) routes every shard to K2

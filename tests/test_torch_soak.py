@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import chip_fuzz
+from phfpfac_tpu_torch.compile.tables import CompiledDictionary
 from phfpfac_tpu_torch.oracle.ac import match_oracle_charset
 from phfpfac_tpu_torch.parallel import matcher as tmatcher
 from phfpfac_tpu_torch.parallel import mesh_pallas
@@ -36,6 +37,7 @@ def test_two_seeds_pass(arm, capsys):
     assert s["ok"] and not s["failed_routes"] and not s["unreached_routes"]
     assert s["checks"]["match"] == s["checks"]["cli"] == 2
     assert s["checks"]["match_chunked"] == s["checks"]["device_data"] == 2
+    assert s["checks"]["tables"] == 4  # --save-tables, then --load-tables
     assert s["total_checks"] >= 16
 
 
@@ -82,13 +84,24 @@ def _one_row_dropped(real):
     return match
 
 
+def _ids_shifted(real):
+    def load(path):
+        compiled = real(path)
+        sh = compiled.shards[0]
+        sh.pattern_id_map = sh.pattern_id_map + 1  # every id off by one
+        return compiled
+    return load
+
+
 @pytest.mark.parametrize("owner, name, fault, routes", [
     (tmatcher.Matcher, "count_matches", _off_by_one_count,
      ["count_matches"]),
     # MultiHostMatcher scans with the plan mesh
     (mesh_pallas.PlanMeshMatcher, "match", _one_row_dropped,
      ["multihost", "plan_mesh"]),
-], ids=["count_matches", "plan_mesh"])
+    # only the CLI's --load-tables run loads a saved dictionary
+    (CompiledDictionary, "load", _ids_shifted, ["tables"]),
+], ids=["count_matches", "plan_mesh", "tables"])
 def test_planted_fault_names_its_route(owner, name, fault, routes,
                                        monkeypatch, capsys):
     monkeypatch.setattr(owner, name, fault(getattr(owner, name)))
