@@ -5,8 +5,10 @@ counterpart of ``bench/e2e.py``, ``bench/dense_diag.py``,
 
 Run on a machine with a CUDA GPU, from the repository root:
 
-    python3 chip_e2e.py [--arm e2e|stages|stream|coldstart|all]
-                        [--dict ascii50k|clamav5k|both] [--mib N]
+    python3 chip_e2e.py [--arm e2e|stages|stream|coldstart|compact|
+                               kernels|all]
+                        [--dict ascii50k|clamav5k|both|english|big|full|
+                                random|words] [--mib N]
                         [--reps 5] [--seed 0] [--patterns N]
                         [--device cuda|cpu]
 
@@ -16,6 +18,29 @@ halo cut: ascii50k (50,003 printable patterns over text) and clamav5k
 (5,000 byte signatures, ``--escapes``, over random bytes), 64 MiB each
 (``--mib``) with 100,000 plants per 64 MiB.  ``--patterns`` scales the
 dictionaries down (the CPU tests).
+
+``--dict words`` runs ``bench.py``'s word-dictionary regimes instead, as
+``bench.py`` and ``bench/e2e.py`` compile them: one shard, width 4096,
+exact mode (``word_config``).  english: 7,977 English-like words over
+128 MiB of text over the same words; big and full: 156,000 and 466,543
+titles (``chip_smoke.py::make_titles``, 3 of them of 33-64 B) over
+32 MiB of that text; random: english over 32 MiB of random bytes; each
+with ``DENSITY`` plants.  Each prints its patterns, states, plan-table
+bytes, route per shard, host build seconds and its calibration against
+``bench.py``'s counts (``WORD_COUNTS``).  Their arms (``WORD_ARMS``):
+``e2e`` (K1's count total equal to the rows, K1 alone, ``match``,
+``match_chunked`` uploaded per chunk and device-resident, ``WORD_REPS``
+timed runs; then the CLI as a process at streamnum 1, 4 shards under its
+default cut, on the first ``CLI_CUT`` bytes where set, its file
+byte-identical to the one-shard rows rendered), ``stages``, ``stream``
+(big: 1 MiB feeds, exact mode), ``compact`` (K1' + K6 at the cut and cap
+``resolve_compact`` gives with the opt-in, the survivors, overflows and
+rescans; ``match_chunked`` and chained count scans both ways) and
+``kernels`` (K1, K1' and K6 bit for bit against their plain versions on
+the first 16 MiB window, K1's times, launches, bytes and gather bounds).
+A word regime's rows are the one-shard matcher's, held to the oracle
+windows and the plants; each of its lines carries its ``calibration``,
+and a size cut forced by the time limit its ``reduced`` list.
 
 Arms, each per deployment:
 
@@ -94,7 +119,22 @@ CHAIN_K = cs.CHAIN_K  # chained count scans a sample
 DENSITY = cs.PLANTS / (64 * MIB)  # plants a byte, chip_smoke.py's
 PRINTABLE = np.arange(32, 127, dtype=np.uint8)
 ARMS = ("e2e", "stages", "stream", "coldstart")
-DICTS = ("ascii50k", "clamav5k")
+DICTS = ("ascii50k", "clamav5k")  # --dict both
+WORDS = ("english", "big", "full", "random")  # --dict words
+WORD_ONLY_ARMS = ("compact", "kernels")  # arms of the word regimes alone
+# the word regimes as bench.py runs them: corpus MiB, and BENCH_r05.json's
+# counts (patterns, states of the one shard, count-mode matches, bytes)
+WORD_MIB = dict(english=128, big=32, full=32, random=32)
+WORD_COUNTS = dict(english=(7_977, 23_951, 56_424_576, 128 * MIB),
+                   big=(156_000, 456_902, 11_351_872, 32 * MIB),
+                   full=(466_543, 1_420_614, 32_135_296, 32 * MIB),
+                   random=(7_977, 23_951, 147_017, 32 * MIB))
+STATE_TOLERANCE, DENSITY_FACTOR = 0.25, 1.5  # calibration, where aimed at
+CLI_CUT = dict(full=16 * MIB)  # the CLI process runs on the first 16 MiB
+WORD_ARMS = dict(english=("e2e", "stages", "compact", "kernels"),
+                 big=("e2e", "stages", "stream", "compact", "kernels"),
+                 full=("e2e", "stages", "compact", "kernels"),
+                 random=("e2e", "stages", "compact"))
 # the match phase's stages, in match_chunked's order a chunk
 STAGES = ("window", "upload", "stage", "k1", "verify", "fetch", "decode",
           "host_tail", "merge")
@@ -163,10 +203,11 @@ class Run:
         fn()
         return [self.seconds(fn) for _ in range(reps or self.reps)]
 
-    def size(self, arm: str) -> int:
+    def size(self, arm: str, name: str = "ascii50k") -> int:
         mib = self.mib
         if mib is None:
-            mib = 1024 if arm == "stream" else 64
+            mib = (WORD_MIB[name] if name in WORDS
+                   else 1024 if arm == "stream" else 64)
         return int(mib * MIB)
 
     def deployment(self, name: str) -> "Deployment":
@@ -203,6 +244,8 @@ class Deployment:
     matcher: object
     cli_rows: np.ndarray | None = None
     verified: bool = False  # cli_rows held to the oracle and the plants
+    build: dict | None = None  # a word regime's host build, described
+    check_seconds: dict = dataclasses.field(default_factory=dict)
 
     @property
     def flags(self) -> list:
@@ -217,13 +260,33 @@ def cli_config(cls=None):
                match_slots=0)
 
 
+def word_config(cls=None):
+    """``bench.py``'s word regimes: one shard, width 4096, exact mode."""
+    if cls is None:
+        from phfpfac_tpu_torch.utils.config import PfacConfig as cls
+    return cls(width=4096, num_shards=1, truncation="none", match_slots=0)
+
+
 def generate(name: str, seed: int, size: int, patterns=None):
     """(patterns, corpus, planted (pos, id) pairs, CLI escapes) of a
     deployment, from ``chip_smoke.py``'s generators: ascii50k's stems
-    over printable text, or clamav5k's signatures over random bytes,
+    over printable text, clamav5k's signatures over random bytes, or a
+    word regime (english's words over their text, big's and full's
+    titles over english's text, random: english over random bytes),
     ``DENSITY`` plants a byte."""
-    rng = np.random.default_rng([seed, DICTS.index(name)])
+    rng = np.random.default_rng([seed, (*DICTS, *WORDS).index(name)])
     plants = max(1, round(size * DENSITY))
+    if name in WORDS:
+        words = cs.make_english_words(
+            rng, patterns if patterns and name in ("english", "random")
+            else WORD_COUNTS["english"][0])
+        pats = (words if name in ("english", "random") else
+                cs.make_titles(rng, patterns or WORD_COUNTS[name][0]))
+        text = (None if name == "random"
+                else cs.make_english_text(rng, words, size))
+        corpus, planted = cs.make_corpus(rng, pats, size, plants=plants,
+                                         base=text)
+        return pats, corpus, planted, False
     if name == "ascii50k":
         pats = (cs.make_ascii50k(rng) if patterns is None else
                 cs.make_stem_patterns(rng, PRINTABLE, count=patterns,
@@ -244,18 +307,78 @@ def build_deployment(run: Run, name: str) -> Deployment:
     from phfpfac_tpu_torch.compile.tables import compile_dictionary
     from phfpfac_tpu_torch.parallel.matcher import Matcher
 
+    t0 = time.perf_counter()
     pats, corpus, planted, escapes = generate(
-        name, run.seed, run.size("e2e"), run.patterns)
+        name, run.seed, run.size("e2e", name), run.patterns)
     files = cs.write_inputs(run.tmp, name, pats, corpus, escapes)
-    cfg = cli_config()
+    cfg = word_config() if name in WORDS else cli_config()
+    t1 = time.perf_counter()
     compiled = compile_dictionary(files[0], cfg, escapes=escapes)
+    t2 = time.perf_counter()
     # the CLI trains the plan layout on the first chunk's head
     m = Matcher(compiled, cfg, device=run.device, train=train_of(corpus))
     m._get_pallas_scanner()
-    return Deployment(name=name, pats=pats, plen=pattern_lengths(pats),
-                      corpus=corpus, planted=planted, files=files,
-                      escapes=escapes, cfg=cfg,
-                      compiled=compiled, matcher=m)
+    run.sync()
+    t3 = time.perf_counter()
+    d = Deployment(name=name, pats=pats, plen=pattern_lengths(pats),
+                   corpus=corpus, planted=planted, files=files,
+                   escapes=escapes, cfg=cfg, compiled=compiled, matcher=m)
+    if name in WORDS:
+        d.build = describe_words(d, generate_seconds=t1 - t0,
+                                 compile_seconds=t2 - t1,
+                                 tables_seconds=t3 - t2)
+    return d
+
+
+def routes(m) -> list:
+    """The route each shard of matcher ``m`` takes: plan, pair or depth
+    (its bitmap kernel), split/<the short part's> (the long patterns to
+    the host or the turbo engine), turbo (no kernel for the shard); or
+    multi / turbo for the whole dictionary."""
+    from phfpfac_tpu_torch.ops.depth import DepthShardScanner
+    from phfpfac_tpu_torch.ops.pair import PairShardScanner
+    from phfpfac_tpu_torch.ops.plan import PlanShardScanner
+
+    def kind(e):
+        for cls, k in ((PlanShardScanner, "plan"), (PairShardScanner, "pair"),
+                       (DepthShardScanner, "depth")):
+            if isinstance(e, cls):
+                return k
+        return type(e).__name__
+
+    how, entries = m._get_pallas_scanner()
+    if how != "depth":
+        return [how] * len(m.compiled.shards)
+    return ["turbo" if e is None else
+            f"split/{kind(e[1][1])}" if isinstance(e, tuple) else kind(e)
+            for e in entries]
+
+
+def describe_words(d: Deployment, **seconds) -> dict:
+    """A word regime's dictionary and tables, its host build split, and
+    its calibration against ``bench.py``'s counts on the TPU record
+    (``WORD_COUNTS``: states within ``STATE_TOLERANCE``, matches a byte
+    within a factor ``DENSITY_FACTOR``; the matches once counted)."""
+    sh = d.compiled.shards[0]
+    planned = plan_entries(d, strict=False)
+    pts = [e.pt for _s, e in planned]
+    want_pats, want_states, want_matches, want_bytes = WORD_COUNTS[d.name]
+    return dict(patterns=len(d.pats), long_patterns=int(
+                    sum(len(p) > 32 for p in d.pats)),
+                states=int(sh.state_num), finals=int(sh.final_state_num),
+                max_pat_len=int(sh.max_pat_len), routes=routes(d.matcher),
+                plan_table_bytes=sum(cs.table_bytes(e.tables)
+                                     for _s, e in planned),
+                plan_host_bytes=sum(int(v.nbytes) for pt in pts
+                                    for v in vars(pt).values()
+                                    if isinstance(v, np.ndarray)),
+                plan_steps=[len(pt.steps) for pt in pts],
+                code_bits=[int(pt.code_bits) for pt in pts],
+                corpus_bytes=len(d.corpus), planted=len(d.planted),
+                target=dict(patterns=want_pats, states=want_states,
+                            matches_per_byte=want_matches / want_bytes),
+                states_vs_target=sh.state_num / want_states - 1,
+                **{k: float(v) for k, v in seconds.items()})
 
 
 def train_of(data: bytes):
@@ -282,11 +405,15 @@ def sorted_rows(a) -> np.ndarray:
     return a[np.lexsort((a[:, 1], a[:, 0]))]
 
 
-def within(got, plen, lo: int, hi: int) -> np.ndarray:
+def within(got, plen, lo: int, hi: int, by_pos: bool = False) -> np.ndarray:
     """The rows that start at or after ``lo`` and end by ``hi``, shifted
     by ``-lo``: the oracle over ``data[lo:hi]`` where ``lo`` sits on a
-    segment boundary (walks are position-local)."""
+    segment boundary (walks are position-local).  ``by_pos``: the rows
+    are in position order (a result's), so the span is cut by search."""
     got = rows(got)
+    if by_pos:
+        got = got[np.searchsorted(got[:, 0], lo):
+                  np.searchsorted(got[:, 0], hi)]
     p = got[:, 0]
     out = got[(p >= lo) & (p + plen[got[:, 1]] <= hi)].copy()
     out[:, 0] -= lo
@@ -315,24 +442,47 @@ def oracle_spans(pats, plen, data: bytes, cfg, spans) -> list:
             for off, (lo, hi) in zip(offs, spans)]
 
 
+def found(got, want) -> np.ndarray:
+    """Which (pos, id) rows of ``want`` are rows of ``got`` (in position
+    order): each position's rows found by search, then compared a rank
+    at a time (a position holds a few)."""
+    p = got[:, 0]
+    lo = np.searchsorted(p, want[:, 0], side="left")
+    hi = np.searchsorted(p, want[:, 0], side="right")
+    out = np.zeros(len(want), bool)
+    for k in range(int((hi - lo).max(initial=0))):
+        at = lo + k
+        ok = at < hi
+        out[ok] |= got[at[ok], 1] == want[ok, 1]
+    return out
+
+
 def hold_to_oracle(got, pats, plen, data: bytes, n: int, cfg, planted,
-                   what: str) -> int:
+                   what: str, seconds: dict | None = None) -> int:
     """``got`` against ``oracle/ac.py`` on ``WINDOW`` bytes around every
     ``CHUNK`` boundary and the end, and against the plants; -> windows
-    checked."""
+    checked.  ``seconds`` gets the oracle's and the plants' times."""
+    seconds = {} if seconds is None else seconds
+    t0 = time.perf_counter()
     got = rows(got)
     seg = cfg.segment_bytes if cfg.truncation == "segment" else 1
     spans = []
     for b in list(range(CHUNK, n, CHUNK)) + [n]:
         lo = max(b - WINDOW // 2, 0) // seg * seg
         spans.append((lo, min(lo + WINDOW, n)))
-    for (lo, hi), want in zip(spans, oracle_spans(pats, plen, data, cfg,
-                                                  spans)):
-        if not np.array_equal(within(got, plen, lo, hi), want):
+    wants = oracle_spans(pats, plen, data, cfg, spans)
+    seconds["oracle"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not (got[1:, 0] >= got[:-1, 0]).all():  # a result is in pos order
+        got = got[np.argsort(got[:, 0], kind="stable")]
+    for (lo, hi), want in zip(spans, wants):
+        if not np.array_equal(within(got, plen, lo, hi, by_pos=True), want):
             fail(f"{what}: the oracle differs on [{lo}, {hi})")
-    key = got[:, 0] * (len(plen) + 1) + got[:, 1]
+    seconds["windows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lost = ~found(got, np.asarray(planted, np.int64).reshape(-1, 2))
     want = np.asarray(planted, np.int64).reshape(-1, 2)
-    lost = ~np.isin(want[:, 0] * (len(plen) + 1) + want[:, 1], key)
+    seconds["plants"] = time.perf_counter() - t0
     if lost.any():
         fail(f"{what}: {int(lost.sum())} planted matches missing, "
              f"first {want[lost][:3].tolist()}")
@@ -343,6 +493,13 @@ def cli_rows(run: Run, d: Deployment) -> np.ndarray:
     """The rows of the CLI's ``GPU_match_result.txt`` on the deployment's
     files (run in-process unless the e2e arm's subprocess wrote it),
     held once to the oracle windows and the plants."""
+    if d.cli_rows is None and d.name in WORDS:
+        # a word regime's answer: the one-shard matcher's, which the
+        # CLI's file (4 shards) must equal byte for byte (``cli_file``)
+        t0 = time.perf_counter()
+        d.cli_rows = rows(d.matcher.match_chunked(
+            d.corpus, input_size=len(d.corpus), chunk_bytes=CHUNK))
+        d.check_seconds["first_match"] = time.perf_counter() - t0
     if d.cli_rows is None:
         from phfpfac_tpu_torch import cli
 
@@ -353,7 +510,8 @@ def cli_rows(run: Run, d: Deployment) -> np.ndarray:
         d.cli_rows = cs.read_output(out)
     if not d.verified:
         hold_to_oracle(d.cli_rows, d.pats, d.plen, d.corpus, len(d.corpus),
-                       d.cfg, d.planted, f"{d.name}: the CLI's file")
+                       d.cfg, d.planted, f"{d.name}: the CLI's file",
+                       d.check_seconds)
         d.verified = True
     return d.cli_rows
 
@@ -368,9 +526,10 @@ def hold(run: Run, d: Deployment, got, what: str) -> None:
 
 # ---- arm e2e ----------------------------------------------------------------
 
-def plan_entries(d: Deployment):
+def plan_entries(d: Deployment, strict: bool = True):
     """(shard, PlanShardScanner) per shard of the main path; a split
-    shard's is its short part's."""
+    shard's is its short part's.  A shard on another route fails the
+    arm (``strict``) or is left out."""
     from phfpfac_tpu_torch.ops.plan import PlanShardScanner
 
     out = []
@@ -378,8 +537,10 @@ def plan_entries(d: Deployment):
         if isinstance(e, tuple):
             shard, e = e[1][0], e[1][1]
         if not isinstance(e, PlanShardScanner):
-            fail(f"{d.name}: a shard's scanner is {type(e).__name__}, "
-                 "not K1")
+            if strict:
+                fail(f"{d.name}: a shard's scanner is {type(e).__name__}, "
+                     "not K1")
+            continue
         out.append((shard, e))
     return out
 
@@ -1010,8 +1171,392 @@ def arm_coldstart(run: Run, d: Deployment) -> dict:
                 nvcc_build=run.build, equal_to_phase_0=True)
 
 
-ARM_FNS = dict(e2e=arm_e2e, stages=stages, stream=arm_stream,
-               coldstart=arm_coldstart)
+# ---- the word regimes ---------------------------------------------------------
+
+WORD_REPS = 2  # timed runs after a warm-up: a run scans 32-128 MiB at dense
+               # matches
+
+
+def count_total(run: Run, d: Deployment) -> int:
+    """K1's count-mode total over the corpus (exact mode), summed over
+    the plan shards: the matches of the patterns it walks."""
+    from phfpfac_tpu_torch.ops.common import pad_input, padded_steps
+    from phfpfac_tpu_torch.ops.plan import PlanCountScan
+
+    n = len(d.corpus)
+    padded = pad_input(d.corpus, 1024, padded_steps(d.compiled.max_pat_len))
+    total = 0
+    for shard, sc in plan_entries(d):
+        c = PlanCountScan(shard, padded_steps(d.compiled.max_pat_len),
+                          device=run.device, pt=sc.pt, compact="off")
+        total += int(c(padded, n, 0))
+    return total
+
+
+def cli_file(run: Run, d: Deployment) -> dict:
+    """The CLI as a process (``python3 -m phfpfac_tpu_torch.cli``) at
+    streamnum 1 (4 shards, its default segment cut) on the regime's
+    files, on the first ``CLI_CUT`` bytes where set: its wall, lines and
+    bytes; its file byte-identical to the rendering of the one-shard
+    rows over the same bytes (any shard count gives the same file for a
+    duplicate-free dictionary)."""
+    from phfpfac_tpu_torch.parallel.merge import render_result_file
+
+    want, n = cli_rows(run, d), len(d.corpus)
+    cut = min(CLI_CUT.get(d.name, n), n)
+    in_file = d.files[1]
+    if cut < n:
+        in_file = os.path.join(run.tmp, f"{d.name}.cut.in")
+        with open(in_file, "wb") as f:
+            f.write(d.corpus[:cut] + b"\n")  # the CLI scans size - 1
+        want = within(want, d.plen, 0, cut)
+    out = os.path.join(run.tmp, f"{d.name}.cli4.out")
+    wall, _line, _err = run_child(
+        [sys.executable, "-m", "phfpfac_tpu_torch.cli", d.files[0], "1",
+         "4096", in_file, "-o", out, "--quiet", *d.flags, "--device",
+         run.device.type])
+    t0 = time.perf_counter()
+    text = render_result_file(want).encode()
+    render = time.perf_counter() - t0
+    size = os.path.getsize(out)
+    with open(out, "rb") as f:
+        same = f.read() == text
+    os.remove(out)
+    if not same:
+        fail(f"{d.name}: the CLI's file ({size} B) != the one-shard "
+             f"rendering ({len(text)} B)")
+    return dict(wall_seconds=wall, corpus_bytes=cut, cut=cut < n,
+                num_shards=4, lines=len(want), file_bytes=size,
+                render_seconds=render, byte_identical=True)
+
+
+def arm_words_e2e(run: Run, d: Deployment) -> dict:
+    """A word regime end to end: its build and calibration; the
+    one-shard rows held to the oracle windows and the plants, K1's
+    count total equal to their number; K1 alone (count mode, chained);
+    ``Matcher.match``, ``match_chunked`` uploaded per chunk and over the
+    corpus staged once; the CLI as a process (``cli_file``)."""
+    m, corpus, n = d.matcher, d.corpus, len(d.corpus)
+    laps, t0 = {}, time.perf_counter()
+
+    def lap(step):
+        nonlocal t0
+        laps[step] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    want = cli_rows(run, d)
+    lap("rows_oracle_plants")
+    short = int((d.plen[want[:, 1]] <= 32).sum())
+    total = count_total(run, d)
+    lap("count_total")
+    if total != short:
+        fail(f"{d.name}: K1's count total {total} != the {short} rows of "
+             "the patterns it walks")
+    target = d.build["target"]["matches_per_byte"]
+    out = dict(d.build, matches=len(want), count_total=total,
+               matches_per_byte=len(want) / n,
+               matches_vs_target=len(want) / n / target,
+               oracle_windows=len(range(CHUNK, n, CHUNK)) + 1,
+               chunk_bytes=CHUNK, reps=WORD_REPS)
+    out["calibrated"] = dict(
+        states=abs(out["states_vs_target"]) <= STATE_TOLERANCE,
+        matches_per_byte=(1 / DENSITY_FACTOR <= out["matches_vs_target"]
+                          <= DENSITY_FACTOR))
+    out["scan"] = scan_alone(run, d)
+    lap("scan_alone")
+    staged = m.stage_for_chunked(corpus, chunk_bytes=CHUNK)
+    kw = dict(input_size=n, chunk_bytes=CHUNK)
+    res = {}
+    for label, fn in (
+            ("match", lambda: m.match(corpus, input_size=n)),
+            ("chunked", lambda: m.match_chunked(corpus, **kw)),
+            ("device_chunked",
+             lambda: m.match_chunked(corpus, device_data=staged, **kw))):
+        st = stats(run.samples(lambda: res.__setitem__(label, fn()),
+                               WORD_REPS))
+        hold(run, d, res.pop(label), f"e2e {label}")
+        out[label] = dict(seconds=st, gb_per_s=gb_per_s(n, st))
+        lap(label)
+    del staged
+    out["cli"] = cli_file(run, d)
+    lap("cli")
+    if out["cli"]["cut"]:  # forced by the run's time limit
+        out["reduced"] = [f"cli: the first {out['cli']['corpus_bytes']} of "
+                          f"{n} bytes"]
+    out["arm_seconds"] = dict(laps, checks=d.check_seconds)
+    return out
+
+
+def arm_words_stream(run: Run, d: Deployment) -> dict:
+    """``StreamMatcher.feed_async`` over the regime's corpus in 1 MiB
+    feeds, exact mode, ``DEPTH`` outstanding, held to the one-shard
+    rows."""
+    want = sorted_rows(cli_rows(run, d))
+    got, turns, latency, total = stream_feeds(run, d.matcher, d.compiled,
+                                              d.cfg, d.corpus, FEEDS[0])
+    if not np.array_equal(sorted_rows(got), want):
+        fail(f"{d.name} stream at {FEEDS[0]} B feeds != match_chunked")
+    n = len(d.corpus)
+    return dict(bytes=n, truncation=d.cfg.truncation, depth=DEPTH,
+                matches=len(want), feed_bytes=FEEDS[0], feeds=len(turns),
+                seconds_per_feed=stats(turns), feed_to_result=stats(latency),
+                total_seconds=total, gb_per_s=n / total / 1e9, equal=True)
+
+
+def kernel_launches():
+    from phfpfac_tpu_torch.ops import plan as K1
+
+    return dict(plan_scan=K1.launches,
+                plan_scan_compact_a=K1.launches_compact_a,
+                planb_scan=K1.launches_compact_b,
+                overflow_rescans=K1.overflow_rescans)
+
+
+def reset_launches() -> None:
+    from phfpfac_tpu_torch.ops import plan as K1
+
+    K1.launches = K1.launches_compact_a = K1.launches_compact_b = 0
+
+
+def arm_compact(run: Run, d: Deployment) -> dict:
+    """The compacted scan (K1' + K6) on the regime's tables, as
+    ``bench.py``'s english A/B runs it: per plan shard the cut and cap
+    ``resolve_compact(pt, n_pos, "auto")`` gives with the opt-in (else
+    the first explicit cut that resolves, as ``chip_smoke.py``'s
+    ``compact_path``), the survivors on the first window and whether
+    they outran the cap; ``match_chunked`` with it engaged, its launches
+    and overflow rescans, held to the one-shard rows, timed (the
+    uncompacted run is the e2e arm's ``chunked``); count mode chained
+    both ways, the better kept."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.common import pad_input, padded_steps
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    m, corpus, n = d.matcher, d.corpus, len(d.corpus)
+    shards = []
+    for shard, sc in plan_entries(d):
+        staged, nw = cs.scan_inputs(sc, corpus[:CHUNK], run.device)
+        how, cut, cap, why = cs.choose_compact(sc.pt, staged.numel() - TILE)
+        r = dict(how=how, cut=cut, cap=cap, declined=why,
+                 live_frac=[float(f) for f in sc.pt.live_frac])
+        if how is not None:
+            _res, surv = K1.plan_scan_compact_a(staged, sc.tables, cut=cut,
+                                                cap=cap)
+            r.update(window_bytes=nw, survivors=int(surv[2]),
+                     survivor_share=int(surv[2]) / nw,
+                     window_overflows=int(surv[2]) > cap)
+        shards.append((sc, r))
+        del staged
+    out = dict(shards=[r for _sc, r in shards])
+    if any(r["how"] is None for _sc, r in shards):
+        return dict(out, engaged=False)
+    kw = dict(input_size=n, chunk_bytes=CHUNK)
+    saved = [sc.compact for sc, _r in shards]
+    for sc, r in shards:
+        sc.compact = "auto" if r["how"] == "auto" else r["cut"]
+    try:
+        with cs.opted_in():
+            reset_launches()
+            rescans0 = K1.overflow_rescans
+            got = m.match_chunked(corpus, **kw)
+            run.sync()
+            launches = kernel_launches()
+            launches["overflow_rescans"] -= rescans0
+            hold(run, d, got, "compacted match_chunked")
+            compacted = stats(run.samples(lambda: m.match_chunked(corpus,
+                                                                  **kw),
+                                          WORD_REPS))
+    finally:
+        for (sc, _r), c in zip(shards, saved):
+            sc.compact = c
+    # count mode over the corpus staged once, chained, both ways
+    padded = pad_input(corpus, 1024, padded_steps(d.compiled.max_pat_len))
+    ms = padded_steps(d.compiled.max_pat_len)
+    count = {}
+    for label, compact in (("plain", "off"), ("compacted", None)):
+        scans = []
+        for (shard, sc), (_sc, r) in zip(plan_entries(d), shards):
+            # the cap resolved for the whole corpus, staged at once
+            c = K1.PlanCountScan(shard, ms, device=run.device, pt=sc.pt,
+                                 compact=compact or (
+                                     "auto" if r["how"] == "auto"
+                                     else r["cut"]))
+            scans.append((c, c.prepare(padded, n)))
+
+        def chain():
+            with cs.opted_in():
+                return [c.scan_chain(st, n, 0, CHAIN_K) for c, st in scans]
+
+        totals = [int(t) for t in chain()]
+        overflowed = any(c.check_overflow() for c, _st in scans)
+        secs = ([cs.cuda_ms(chain, reps=1) / CHAIN_K / 1e3
+                 for _ in range(run.reps)] if run.card else
+                [s / CHAIN_K for s in run.samples(chain)])
+        if run.card:
+            overflowed |= any(c.check_overflow() for c, _st in scans)
+        count[label] = dict(seconds_per_scan=stats(secs), totals=totals,
+                            overflowed=overflowed)
+        del scans
+    exact = count["compacted"]["overflowed"] or \
+        count["compacted"]["totals"] == count["plain"]["totals"]
+    if not exact:
+        fail(f"{d.name}: the compacted count totals "
+             f"{count['compacted']['totals']} != the plain ones "
+             f"{count['plain']['totals']} with no overflow")
+    better = ("plain" if count["compacted"]["overflowed"] or
+              med(count["plain"]["seconds_per_scan"])
+              <= med(count["compacted"]["seconds_per_scan"]) else "compacted")
+    # (the uncompacted match_chunked: the e2e arm's "chunked")
+    return dict(out, engaged=True, launches=launches, match_chunked=dict(
+        compacted=compacted, compacted_gb_per_s=gb_per_s(n, compacted)),
+        count=count, count_better=better, equal=True)
+
+
+def gather_rows(run: Run) -> list:
+    """P1's int32 rates at its swept tables up to 32 MiB (once a run),
+    every timed shape held to its plain version."""
+    if getattr(run, "g_rows", None) is None:
+        from phfpfac_tpu_torch.probes import gather
+
+        run.g_rows = list(gather.sweep(
+            run.device, arms=("i32",), ks=(1, 8),
+            table_bytes=tuple(b for b in gather.SWEEP_TABLE_BYTES
+                              if b <= 32 << 20),
+            check=lambda got, want, what: cs.agree("probe_gather", [got],
+                                                   [want], what)))
+    return run.g_rows
+
+
+def arm_kernels(run: Run, d: Deployment) -> dict:
+    """K1, K1' and K6 on the regime's tables (the plan shard; a split
+    shard's short part) over the first 16 MiB window, each held bit for
+    bit to its plain version: K1 bitmap and count mode (the count equal
+    to the bitmap's popcount and to the one-shard rows there), K1' at
+    the compacted arm's cut and cap (else cut 1 at half the window), K6
+    on its survivors, the pair equal to K1.  K1 timed (``cuda_ms``, the
+    profiler's device time), its launches in one ``match_chunked`` run,
+    its bytes bound (4 B read, 8 B written a position, the tables once)
+    and gather bound (its dependent gathers on this window, table by
+    table, over P1's best int32 rate at tables no larger)."""
+    from phfpfac_tpu_torch.ops import plan as K1
+    from phfpfac_tpu_torch.ops.staging import TILE
+
+    (_shard, sc), = plan_entries(d)
+    window = d.corpus[:CHUNK]
+    staged, nw = cs.scan_inputs(sc, window, run.device)
+    t, n_pos = sc.tables, staged.numel() - TILE
+    what = f"{d.name} window"
+    cnt, bits = K1.plan_scan(staged, t)
+    cs.agree("plan_scan", [cnt, bits], K1.plan_scan_plain(staged, t),
+             f"{what}: K1 bitmap")
+    total = K1.plan_scan(staged, t, emit="count")
+    cs.agree("plan_scan", [total], [K1.plan_scan_plain(staged, t,
+                                                       emit="count")],
+             f"{what}: K1 count")
+    pop = int(K1.popcount32(bits[:nw]).sum())
+    want = within(cli_rows(run, d), d.plen, 0, nw)
+    walked = int((d.plen[want[:, 1]] <= 32).sum())
+    if not int(total) == pop == walked:
+        fail(f"{what}: count {int(total)}, popcount {pop}, rows {walked}")
+    cut, cap = 1, n_pos // 2 // K1.COMPACT_BLOCK * K1.COMPACT_BLOCK
+    how, c, k, _why = cs.choose_compact(sc.pt, n_pos)
+    if how is not None:
+        cut, cap = c, k
+    kw = dict(cut=cut, cap=cap)
+    got, surv = K1.plan_scan_compact_a(staged, t, **kw)
+    want_a, want_surv = K1.plan_scan_compact_a_plain(staged, t, **kw)
+    count, fed = int(surv[2]), None
+    cs.agree("plan_scan_compact_a",
+             [*got, *cs.sorted_survivors(surv, cap)],
+             [*want_a, *cs.sorted_survivors(want_surv, cap)],
+             f"{what}: K1' cut={cut} cap={cap}")
+    if count <= cap:
+        pad = torch.zeros(cap - count, dtype=torch.int32, device=run.device)
+        fed = (torch.cat([want_surv[0], pad]),
+               torch.cat([want_surv[1], pad]), want_surv[2])
+        K1.planb_scan(staged, t, got, fed, **kw)
+        K1.planb_scan_plain(staged, t, want_a, want_surv, **kw)
+        cs.agree("planb_scan", got, want_a, f"{what}: K6")
+        cs.agree("planb_scan", got, [cnt, bits], f"{what}: K1' + K6 != K1")
+    del got, want_a, fed
+    out = dict(window_bytes=nw, n_pos=n_pos, matches=walked,
+               matches_per_byte=walked / nw, cut=cut, cap=cap,
+               survivors=count, overflowed=count > cap,
+               plan_table_bytes=cs.table_bytes(t),
+               max_abs_err={k: cs.MAX_ERR[k] for k in
+                            ("plan_scan", "plan_scan_compact_a",
+                             "planb_scan")})
+    reset_launches()
+    d.matcher.match_chunked(d.corpus, input_size=len(d.corpus),
+                            chunk_bytes=CHUNK)
+    run.sync()
+    out["launches_a_run"] = kernel_launches()
+    out["bytes_bound_ms"] = cs.bound_ms(n_pos, cs.table_bytes(t), True)
+    out["count_bytes_bound_ms"] = cs.bound_ms(n_pos, cs.table_bytes(t),
+                                              False)
+    if run.card:
+        def timed(fn, name):
+            return dict(cuda_ms=stats([cs.cuda_ms(fn) for _ in
+                                       range(run.reps)]),
+                        device_ms=cs.device_ms(fn, name))
+
+        out["k1"] = timed(lambda: K1.plan_scan(staged, t), "plan_scan")
+        out["k1_count"] = timed(lambda: K1.plan_scan(staged, t,
+                                                     emit="count"),
+                                "plan_scan")
+        out["k1_plain_ms"] = cs.cuda_ms(lambda: K1.plan_scan_plain(staged, t),
+                                        reps=2)
+        items = [it for step in cs.plan_step_probes(staged, t, 0)
+                 for it in step]
+        rows_ = gather_rows(run)
+        ms, tiers = 0.0, {}
+        for g, tb in items:
+            rate, tier = cs.gather_rate(rows_, tb)
+            ms += g / rate * 1e3
+            tiers[tier] = tiers.get(tier, 0) + g
+        out["gather_bound"] = dict(
+            gathers=sum(g for g, _ in items), gather_bound_ms=ms,
+            gathers_by_table_tier_bytes=dict(sorted(tiers.items())),
+            rates={r["table_bytes"]: r["gathers_per_s"] for r in rows_
+                   if r["k"] == 1})
+        if med(out["k1"]["cuda_ms"]) < ms:
+            fail(f"{what}: K1 under its gather bound")
+    return out
+
+
+def arm_e2e_any(run: Run, d: Deployment) -> dict:
+    return (arm_words_e2e if d.name in WORDS else arm_e2e)(run, d)
+
+
+def arm_stream_any(run: Run, d: Deployment) -> dict:
+    return (arm_words_stream if d.name in WORDS else arm_stream)(run, d)
+
+
+def arm_stages(run: Run, d: Deployment) -> dict:
+    return stages(run, d, 1 if d.name in WORDS else None)
+
+
+def calibration(d: Deployment) -> dict:
+    """A word regime against ``WORD_COUNTS``: states and, once its rows
+    are counted, matches a byte (``STATE_TOLERANCE``,
+    ``DENSITY_FACTOR``)."""
+    t = d.build["target"]
+    out = dict(states=d.build["states"],
+               states_vs_target=d.build["states_vs_target"])
+    if d.cli_rows is not None:
+        mpb = len(d.cli_rows) / len(d.corpus)
+        out.update(matches_per_byte=mpb,
+                   matches_vs_target=mpb / t["matches_per_byte"])
+    return out
+
+
+def applies(arm: str, name: str) -> bool:
+    return arm in (WORD_ARMS[name] if name in WORDS else ARMS)
+
+
+ARM_FNS = dict(e2e=arm_e2e_any, stages=arm_stages, stream=arm_stream_any,
+               coldstart=arm_coldstart, compact=arm_compact,
+               kernels=arm_kernels)
 CHILDREN = dict(split=split_child, coldstart=coldstart_child)
 
 
@@ -1024,8 +1569,10 @@ def emit(obj: dict) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arm", choices=(*ARMS, "all"), default="all")
-    ap.add_argument("--dict", choices=(*DICTS, "both"), default="both")
+    ap.add_argument("--arm", choices=(*ARMS, *WORD_ONLY_ARMS, "all"),
+                    default="all")
+    ap.add_argument("--dict", choices=(*DICTS, *WORDS, "both", "words"),
+                    default="both")
     ap.add_argument("--mib", type=float, default=None,
                     help="corpus MiB (default 64; the stream arm 1,024)")
     ap.add_argument("--reps", type=int, default=5)
@@ -1055,17 +1602,21 @@ def main(argv=None) -> int:
         _build.build_all()
         run.build = dict(seconds=time.perf_counter() - t0,
                          libraries_held_before=held)
-    arms = ARMS if args.arm == "all" else (args.arm,)
-    names = DICTS if args.dict == "both" else (args.dict,)
+    arms = (*ARMS, *WORD_ONLY_ARMS) if args.arm == "all" else (args.arm,)
+    names = dict(both=DICTS, words=WORDS).get(args.dict, (args.dict,))
     results, failed = {}, []
     with tempfile.TemporaryDirectory() as tmp:
         run.tmp = tmp
         for arm in arms:
             for name in names:
+                if not applies(arm, name):
+                    continue
                 t0 = time.perf_counter()
                 try:
-                    r = dict(ARM_FNS[arm](run, run.deployment(name)),
-                             ok=True)
+                    d = run.deployment(name)
+                    r = dict(ARM_FNS[arm](run, d), ok=True)
+                    if name in WORDS:
+                        r["calibration"] = calibration(d)
                 except Exception as e:  # noqa: BLE001 - reported; exit 1
                     r = dict(ok=False, error=f"{type(e).__name__}: {e}",
                              traceback=traceback.format_exc().splitlines()

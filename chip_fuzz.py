@@ -23,7 +23,9 @@ dictionary allows, on the device, and holds each to ``oracle/ac.py``
 ``MultiHostMatcher`` on 4, the CLI's result file, and the CLI with
 ``--save-tables`` then ``--load-tables`` (no pattern file read).
 Dictionaries: ``tests/test_fuzz.py``'s four
-flavors and ``chip_smoke.py::soak_case``'s kinds; ``--charset`` takes
+flavors, ``chip_smoke.py::soak_case``'s kinds and a ``words`` draw (its
+English-like words and titles over their text, at about 0.3-1 match a
+byte: ``word_dictionary``); ``--charset`` takes
 ``bench/tpu_fuzz.py``'s random class dictionaries and ``soak_case``'s
 class kind.
 
@@ -59,7 +61,7 @@ import chip_smoke as cs  # noqa: E402
 KIB, MIB = 1 << 10, 1 << 20
 ARMS = ("exact", "segment", "charset")
 PLAIN_SOURCES = ("fuzz:abcd", "fuzz:english", "fuzz:dense40", "fuzz:binary",
-                 "soak:dense", "soak:s0", "soak:s0x")
+                 "soak:dense", "soak:s0", "soak:s0x", "words:titles")
 CLASS_SOURCES = ("classes:narrow", "classes:lower", "classes:binary",
                  "soak:class")
 ROUTES = ("match", "match_chunked", "device_data", "stream", "match_many",
@@ -194,6 +196,13 @@ def make_case(source: str, seed: int, cfg, size: int, tmp: str) -> Case:
             return Case(compiled, pats, lines, data[:size], True)
         return Case(compiled, pats, [p.data for p in pats], data[:size],
                     False)
+    if family == "words":
+        words, pats = word_dictionary(rng)
+        text = cs.make_english_text(rng, words, full)
+        data, _ = cs.make_corpus(rng, pats, full, plants=plants, base=text)
+        pats = [Pattern(i + 1, w) for i, w in enumerate(pats)]
+        return Case(compile_patterns(pats, cfg), pats,
+                    [p.data for p in pats], data[:size], False)
     if family == "fuzz":
         flavor = PLAIN_SOURCES.index(source)
         words, head = dict_and_corpus(4 * seed + flavor)
@@ -213,6 +222,21 @@ def make_case(source: str, seed: int, cfg, size: int, tmp: str) -> Case:
                              np.arange(lo, hi, dtype=np.uint8), plants=plants)
     return Case(compile_class_patterns(cps, cfg), cps, specs,
                 (head + body)[:size], True)
+
+
+def word_dictionary(rng):
+    """(vocabulary, dictionary) of a ``words`` draw: 200-2,000 of
+    ``chip_smoke.py``'s English-like words, 100-3,000 of its titles (3 of
+    33-64 B), one draw in two some single letters: about 0.3-1 match a
+    byte of the vocabulary's text (``chip_e2e.py``'s word regimes, small)."""
+    words = cs.make_english_words(rng, int(rng.integers(200, 2001)))
+    pats = dict.fromkeys(words)
+    pats.update(dict.fromkeys(cs.make_titles(rng, int(rng.integers(100,
+                                                                   3001)))))
+    if rng.random() < 0.5:
+        pats.update(dict.fromkeys(bytes([c]) for c in rng.choice(
+            cs.LETTERS, int(rng.integers(1, 27)), replace=False)))
+    return words, list(pats)
 
 
 def _class_line(cp) -> bytes:

@@ -637,4 +637,37 @@ int64_t pfac_decode_hits_hash(
   return total;
 }
 
+// GPU_match_result.txt's lines, "At position %4d, match pattern %d\n",
+// one per (pos, id) row (both >= 0) -> bytes written to out (at most 69
+// a row).
+int64_t pfac_render_rows(const int64_t* pos, const int64_t* ids, int64_t n,
+                         char* out) {
+  static const char kHead[] = "At position ";
+  static const char kMid[] = ", match pattern ";
+  char* p = out;
+  char digits[24];
+  for (int64_t r = 0; r < n; ++r) {
+    std::memcpy(p, kHead, 12);
+    p += 12;
+    int k = 0;
+    uint64_t x = static_cast<uint64_t>(pos[r]);
+    do {
+      digits[k++] = static_cast<char>('0' + x % 10);
+      x /= 10;
+    } while (x);
+    for (int i = k; i < 4; ++i) *p++ = ' ';
+    while (k) *p++ = digits[--k];
+    std::memcpy(p, kMid, 16);
+    p += 16;
+    x = static_cast<uint64_t>(ids[r]);
+    do {
+      digits[k++] = static_cast<char>('0' + x % 10);
+      x /= 10;
+    } while (x);
+    while (k) *p++ = digits[--k];
+    *p++ = '\n';
+  }
+  return p - out;
+}
+
 }  // extern "C"

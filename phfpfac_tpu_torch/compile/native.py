@@ -144,6 +144,11 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_int64,                                # tsize_log2
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ]
+            lib.pfac_render_rows.restype = ctypes.c_int64
+            lib.pfac_render_rows.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                ctypes.c_void_p,
+            ]
             _lib = lib
         except Exception:  # noqa: BLE001 — fall back to NumPy
             _failed = True
@@ -432,3 +437,19 @@ def decode_hits_native(
             max_t, n_threads, out.ctypes.data if cap else None,
         )
     return out[: wrote * 3].reshape(-1, 3)
+
+
+RENDER_ROW_BYTES = 69  # the longest result line: 20 + 20 digits + 29
+
+
+def render_rows_native(pos: np.ndarray, ids: np.ndarray) -> bytes:
+    """``At position %4d, match pattern %d`` lines of non-negative
+    (pos, id) rows (``parallel/merge.py::render_result_file``'s block)."""
+    lib = _load()
+    assert lib is not None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    ids = np.ascontiguousarray(ids, dtype=np.int64)
+    out = np.empty(len(pos) * RENDER_ROW_BYTES, np.uint8)
+    n = lib.pfac_render_rows(pos.ctypes.data, ids.ctypes.data, len(pos),
+                             out.ctypes.data)
+    return out[:n].tobytes()

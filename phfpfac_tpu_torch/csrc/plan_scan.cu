@@ -15,8 +15,14 @@
 //
 // What bounds it on an H100: bytes.  4 B of staged stream read and 8 B
 // of cnt and bits written per position (nothing per position in count
-// mode); every table a live walker reads is under 64 KiB and sits in
-// L1.  One walker per thread (the first port's mapping) left 83-84% of
+// mode).  The tables a live walker reads are under 64 KiB, in L1, on
+// the four-shard deployments of a few thousand patterns a shard; one
+// shard of a word dictionary holds more (0.95 MB of plan tables for
+// 156,000 titles, 2.3 MB for 466,543), read through the 50 MB L2, and
+// the walk still takes 0.23-0.25 ms a 16 MiB chunk, about 4x its
+// bytes bound (one H100 80GB HBM3 at 700 W; PERF.md §6).  Offsets into
+// the banks are 32-bit unsigned words: 16 GiB of tables before they
+// wrap.  One walker per thread (the first port's mapping) left 83-84% of
 // the lanes idle in the step loop, because a warp ran until its longest
 // walker died, and the walk's dependent gathers, not the stream, took
 // half its time.  This design:

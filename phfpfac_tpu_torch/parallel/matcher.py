@@ -494,9 +494,16 @@ class Matcher:
                     # back to ORIGINAL shard-local states
                     if ms.size:
                         ms[:, 2] = short_map[ms[:, 2]]
-                    if ml.size:
-                        ml[:, 2] = long_map[ml[:, 2]]
-                    return np.concatenate([ms, ml])
+                    if not ml.size:
+                        return ms
+                    ml[:, 2] = long_map[ml[:, 2]]
+                    # the few long matches into the short ones' (pos,
+                    # step) order (a long match's step follows every
+                    # short one's), so that the merge finds the shard's
+                    # flats sorted and takes its fast path
+                    ml = ml[np.lexsort((ml[:, 1], ml[:, 0]))]
+                    at = np.searchsorted(ms[:, 0], ml[:, 0], side="right")
+                    return np.insert(ms.reshape(-1, 3), at, ml, axis=0)
 
                 resolvers.append(resolve)
             else:
