@@ -18,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from phfpfac_tpu_torch.utils.profile import count, span
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).resolve().parent.parent / "build" / "kernels"
 FLAGS = [
@@ -67,7 +69,9 @@ def _finish(name: str, started) -> None:
     if started is None:
         return
     proc, tmp, so = started
-    out, _ = proc.communicate()
+    with span("stage:build.nvcc"):
+        out, _ = proc.communicate()
+    count("build.nvcc")
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{out}")
     tmp.replace(so)  # atomic publication for concurrent builders

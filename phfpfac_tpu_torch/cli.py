@@ -37,7 +37,8 @@ Notes on fidelity:
   ``--save-tables``.
 * ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the
   match phase into DIR (CUDA and CPU activities; CPU alone with
-  ``--device cpu``).
+  ``--device cpu``), and beside it the program's span seconds and
+  counters of that phase (``match_<pid>.spans.json``).
 """
 
 from __future__ import annotations
@@ -98,7 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="load compiled tables instead of building")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the match phase")
+                   help="write a torch.profiler trace of the match phase "
+                   "and its span totals")
     mh = p.add_argument_group("multi-process (torch.distributed, gloo)")
     mh.add_argument("--coordinator", default=None,
                     help="coordinator address host:port")

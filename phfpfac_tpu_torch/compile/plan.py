@@ -68,6 +68,7 @@ from phfpfac_tpu_torch.compile.pair import (
     collect_alphabet,
 )
 from phfpfac_tpu_torch.compile.tables import ShardTables
+from phfpfac_tpu_torch.utils.profile import steps
 
 _LANE = 128
 
@@ -215,7 +216,19 @@ def build_plan_tables(
     shard's automaton produce all-miss EMPTY steps so every shard gets
     the same static program), and k0-trim disabled so bank offsets
     stay uniform across shards.
+
+    Under a ``torch.profiler`` capture each phase is a span:
+    ``stage:tables.levels``, ``.minimize``, ``.train`` (with ``train``),
+    ``.layout`` and ``.fill``.
     """
+    with steps() as step:
+        return _build_plan_tables(
+            step, shard, minimize=minimize, train=train, code=code,
+            forced_kinds=forced_kinds, trim=trim)
+
+
+def _build_plan_tables(step, shard, *, minimize, train, code, forced_kinds,
+                       trim) -> PlanTables:
     if shard.max_pat_len > MAX_DEPTH_STEPS:
         raise PairUnsupported("max pattern length exceeds bitmap width")
     nf = shard.final_state_num
@@ -224,12 +237,14 @@ def build_plan_tables(
         raise PairUnsupported("degenerate automaton")
     if not minimize:
         raise PairUnsupported("plan tables require class minimization")
+    step("stage:tables.levels")
     dense = shard.dense_table()
     dense[init] = shard.s0  # identical by construction; be explicit
     levels = _bfs_levels(dense, init)
     D = len(levels)
     if D == 0:
         raise PairUnsupported("empty automaton")
+    step("stage:tables.minimize")
     lv = _minimize_levels(dense, levels, nf)
 
     weights = None
@@ -238,6 +253,7 @@ def build_plan_tables(
     if train is not None:
         from phfpfac_tpu_torch.compile.depth import level_visit_counts
 
+        step("stage:tables.train")
         train_len = len(train)
         weights = level_visit_counts(
             dense, shard.s0, lv, train, cell_live_out=cell_live
@@ -250,6 +266,7 @@ def build_plan_tables(
             cell_live = []
 
     # ---- alphabet coding --------------------------------------------------
+    step("stage:tables.layout")
     # beyond cb=6 the dense sigma^2 depths-1+2 table would cost 128
     # banks per position; a code-indexed s0 prologue replaces it.  Full
     # binary alphabets (sigma up to 256 — ClamAV-style byte signatures,
@@ -640,6 +657,7 @@ def build_plan_tables(
             )
 
     # ---- fill -------------------------------------------------------------
+    step("stage:tables.fill")
     # every stored displacement (offset + span) must fit the value
     # field; dead-zone safety is by construction (real offsets >= span)
     span_of = {"mono": mono_span, "pair": pair_span}

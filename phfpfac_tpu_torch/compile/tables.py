@@ -24,6 +24,7 @@ from phfpfac_tpu_torch.frontend.patterns import (
     sort_patterns,
 )
 from phfpfac_tpu_torch.utils.config import CHAR_SET, PfacConfig
+from phfpfac_tpu_torch.utils.profile import span
 
 
 class ShardTables:
@@ -455,8 +456,9 @@ def compile_dictionary(
     verbose: bool = False,
 ) -> CompiledDictionary:
     """Read + compile a pattern file (create_PFAC_table_reorder.c:6-11 facade)."""
-    patterns = read_patterns(pattern_file, escapes=escapes)
-    return compile_patterns(patterns, config, verbose=verbose)
+    with span("stage:compile.trie"):
+        patterns = read_patterns(pattern_file, escapes=escapes)
+        return compile_patterns(patterns, config, verbose=verbose)
 
 
 def dense_lookup(trie_table: np.ndarray, state: int, ch: int) -> int:

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from phfpfac_tpu_torch.compile.tables import ShardTables
+from phfpfac_tpu_torch.utils.profile import count, span
 
 
 def fetch_hit_bits(bits_dev: torch.Tensor, input_size: int):
@@ -23,14 +24,19 @@ def fetch_hit_bits(bits_dev: torch.Tensor, input_size: int):
 
     One ``torch.nonzero`` over the first ``input_size`` positions on
     the scan's device, then ONE device-to-host copy of the (position,
-    bitmap) pairs: the download is O(hits), 8 bytes per hit.
+    bitmap) pairs: the download is O(hits), 16 bytes per hit (two
+    int64s; counted as ``fetch.bytes`` under a capture).
 
     Returns (hit_pos int64[], hit_bits uint32[]).
     """
-    b = bits_dev[:input_size]
-    pos = torch.nonzero(b).squeeze(1)
-    pairs = torch.stack([pos, b[pos].to(torch.int64)]).cpu().numpy()
-    return pairs[0], pairs[1].astype(np.int32).view(np.uint32)
+    with span("stage:result.fetch"):
+        b = bits_dev[:input_size]
+        pos = torch.nonzero(b).squeeze(1)
+        pairs = torch.stack([pos, b[pos].to(torch.int64)]).cpu().numpy()
+        hb = pairs[1].astype(np.int32).view(np.uint32)
+    count("fetch.bytes", pairs.nbytes)
+    count("result.hits", len(hb))
+    return pairs[0], hb
 
 
 def decode_bitmap(
@@ -59,6 +65,13 @@ def decode_hits(
     max_steps: int,
 ) -> np.ndarray:
     """Sparse-form decode (see fetch_hit_bits)."""
+    with span("stage:result.decode"):
+        m = _decode_hits(hb, hit_pos, data, input_size, shard, max_steps)
+    count("result.rows", len(m))
+    return m
+
+
+def _decode_hits(hb, hit_pos, data, input_size, shard, max_steps):
     if hit_pos.size == 0:
         return np.empty((0, 3), dtype=np.int64)
     arr = (

@@ -48,6 +48,7 @@ from phfpfac_tpu_torch.ops.staging import (
     staged_rows,
     to_device_bytes,
 )
+from phfpfac_tpu_torch.utils.profile import span
 
 # one step's ready operands, as the tile kernel reads them (struct Step)
 DEPTH_DESC_FIELDS = ("base", "lo", "span")
@@ -220,15 +221,17 @@ class DepthShardScanner(ShardScanner):
     def stage(self, data: torch.Tensor, input_size: int,
               max_steps: int) -> torch.Tensor:
         n_pos = data.shape[0] - max_steps
-        return stage_input(data, input_size, n_rows=staged_rows(n_pos))
+        with span("stage:input.stage"):
+            return stage_input(data, input_size, n_rows=staged_rows(n_pos))
 
     def scan(self, data_padded, input_size, cfg, max_steps):
         """(per-position counts, per-position bitmaps) on the device."""
         seg = cfg.segment_bytes if cfg.truncation == "segment" else 0
         data = to_device_bytes(data_padded, self.device)
-        return depth_scan(self.stage(data, input_size, max_steps),
-                          self.tables, input_size=input_size,
-                          seg_bytes=seg, halo_bytes=cfg.halo_bytes)
+        staged = self.stage(data, input_size, max_steps)
+        with span("stage:scan.launch"):
+            return depth_scan(staged, self.tables, input_size=input_size,
+                              seg_bytes=seg, halo_bytes=cfg.halo_bytes)
 
 
 class DepthCountScan(CountScan):

@@ -62,6 +62,7 @@ from phfpfac_tpu_torch.ops.staging import (
     staged_rows,
     to_device_bytes,
 )
+from phfpfac_tpu_torch.utils.profile import span
 
 # one row of the pair tables' step list (compile.pair)
 STEP_FIELDS = ("p_off", "p_nb", "p_k0", "s_off", "s_nb", "s_k0", "s_nibble")
@@ -260,16 +261,19 @@ class PairShardScanner(ShardScanner):
     def stage(self, data: torch.Tensor, input_size: int,
               max_steps: int) -> torch.Tensor:
         n_pos = data.shape[0] - max_steps
-        return stage_pairs(data, input_size, self.tables.code_of,
-                           n_rows=staged_rows(n_pos), cb=self.pt.code_bits)
+        with span("stage:input.stage"):
+            return stage_pairs(data, input_size, self.tables.code_of,
+                               n_rows=staged_rows(n_pos),
+                               cb=self.pt.code_bits)
 
     def scan(self, data_padded, input_size, cfg, max_steps):
         """(per-position counts, per-position bitmaps) on the device."""
         if cfg.truncation == "segment":
             raise PairUnsupported("segment truncation needs stride-1")
         data = to_device_bytes(data_padded, self.device)
-        return pair_scan(self.stage(data, input_size, max_steps),
-                         self.tables)
+        staged = self.stage(data, input_size, max_steps)
+        with span("stage:scan.launch"):
+            return pair_scan(staged, self.tables)
 
 
 class PairCountScan(CountScan):

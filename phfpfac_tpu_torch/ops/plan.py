@@ -55,6 +55,7 @@ from phfpfac_tpu_torch.ops.staging import (
     staged_rows,
     to_device_bytes,
 )
+from phfpfac_tpu_torch.utils.profile import span
 
 P0_MODES = {"dense": 0, "s0": 1, "s0x": 2}
 
@@ -95,9 +96,11 @@ class PlanKernelTables:
             return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(
                 device)
 
+        with span("stage:tables.upload"):
+            p0, packed = dev(pt.p0_banks), dev(pt.packed_banks)
+            side, code_of = dev(pt.side_banks), dev(pt.code_of)
         return cls(
-            p0=dev(pt.p0_banks), packed=dev(pt.packed_banks),
-            side=dev(pt.side_banks), code_of=dev(pt.code_of),
+            p0=p0, packed=packed, side=side, code_of=code_of,
             spec=tuple(pt.steps),
             desc=step_descriptors(pt.steps, pt.code_bits, pt.p0_miss),
             cb=pt.code_bits, p0_mode=pt.p0_mode, p0_miss=pt.p0_miss,
@@ -735,8 +738,10 @@ class PlanShardScanner(ShardScanner):
     def stage(self, data: torch.Tensor, input_size: int,
               max_steps: int) -> torch.Tensor:
         n_pos = data.shape[0] - max_steps
-        return stage_pairs(data, input_size, self.tables.code_of,
-                           n_rows=staged_rows(n_pos), cb=self.pt.code_bits)
+        with span("stage:input.stage"):
+            return stage_pairs(data, input_size, self.tables.code_of,
+                               n_rows=staged_rows(n_pos),
+                               cb=self.pt.code_bits)
 
     def scan(self, data_padded, input_size, cfg, max_steps):
         """(per-position counts, per-position bitmaps) on the device."""
@@ -754,23 +759,28 @@ class PlanShardScanner(ShardScanner):
         staged = self.stage(data, input_size, max_steps)
         cc = resolve_compact(self.pt, staged.numel() - TILE, self.compact)
         if cc is None:
-            cnt, bits = plan_scan(staged, self.tables, seg_bytes=seg,
-                                  halo_bytes=halo)
+            with span("stage:scan.launch"):
+                cnt, bits = plan_scan(staged, self.tables, seg_bytes=seg,
+                                      halo_bytes=halo)
             return cnt, bits, lambda: (cnt, bits)
         cut, cap = cc
-        cnt, bits, count = plan_scan_compact(
-            staged, self.tables, cut=cut, cap=cap, seg_bytes=seg,
-            halo_bytes=halo)
+        with span("stage:scan.launch"):
+            cnt, bits, count = plan_scan_compact(
+                staged, self.tables, cut=cut, cap=cap, seg_bytes=seg,
+                halo_bytes=halo)
 
         def verify():
             global overflow_rescans
-            if int(count) <= cap:
+            with span("stage:scan.verify"):
+                fits = int(count) <= cap
+            if fits:
                 return cnt, bits
             # the trained estimate was wrong for this input: rescan
             # uncompacted, never truncate
             overflow_rescans += 1
-            return plan_scan(staged, self.tables, seg_bytes=seg,
-                             halo_bytes=halo)
+            with span("stage:scan.launch"):
+                return plan_scan(staged, self.tables, seg_bytes=seg,
+                                 halo_bytes=halo)
 
         return cnt, bits, verify
 

@@ -67,6 +67,7 @@ from phfpfac_tpu_torch.parallel.merge import (
     render_result_file,
 )
 from phfpfac_tpu_torch.utils.config import PfacConfig
+from phfpfac_tpu_torch.utils.profile import count, span
 from phfpfac_tpu_torch.utils.timing import PhaseTimer
 
 _POS_PAD = 1024  # position-count padding granularity
@@ -420,9 +421,11 @@ class Matcher:
         if kind == "turbo":
             return None
         # one upload per chunk, shared by every shard's staging
-        padded = padded_dev if padded_dev is not None else to_device_bytes(
-            pad_input(data, _POS_PAD, max_steps), self.device
-        )
+        padded = padded_dev
+        if padded is None:
+            with span("stage:input.upload"):
+                padded = to_device_bytes(
+                    pad_input(data, _POS_PAD, max_steps), self.device)
 
         if kind == "multi":
             if max_steps > MAX_BITMAP_STEPS:
@@ -436,6 +439,7 @@ class Matcher:
                 def resolve():
                     if not host:
                         host.append(bits_dev.cpu().numpy())
+                        count("fetch.bytes", host[0].nbytes)
                     return decode_bitmap(
                         host[0][s], data, input_size, shard, max_steps
                     )
@@ -581,10 +585,11 @@ class Matcher:
             base, body, resolvers = pending.pop(0)
             for s, r in enumerate(resolvers):
                 m = r()
-                if m.size:
-                    m = m[m[:, 0] < body]
-                    m[:, 0] += base
-                per_shard[s].append(m.reshape(-1, 3))
+                with span("stage:chunk.cut"):
+                    if m.size:
+                        m = m[m[:, 0] < body]
+                        m[:, 0] += base
+                    per_shard[s].append(m.reshape(-1, 3))
 
         # every dispatch uses the SAME padded window length
         wlen = chunk_bytes + overlap
@@ -600,9 +605,10 @@ class Matcher:
             while base < input_size:
                 body = min(chunk_bytes, input_size - base)
                 wend = min(base + body + overlap, input_size)
-                window = bytes(data[base:wend])
-                if len(window) < wlen:
-                    window += b"\x00" * (wlen - len(window))
+                with span("stage:chunk.window"):
+                    window = bytes(data[base:wend])
+                    if len(window) < wlen:
+                        window += b"\x00" * (wlen - len(window))
                 resolvers = self._dispatch(
                     window, wend - base,
                     padded_dev=None if device_data is None
@@ -617,11 +623,12 @@ class Matcher:
             else:
                 while pending:
                     resolve_one()
-                flats = [
-                    np.concatenate(parts) if parts else
-                    np.empty((0, 3), np.int64)
-                    for parts in per_shard
-                ]
+                with span("stage:chunk.concat"):
+                    flats = [
+                        np.concatenate(parts) if parts else
+                        np.empty((0, 3), np.int64)
+                        for parts in per_shard
+                    ]
                 return merge_flat_matches(self.compiled, flats, input_size)
         return self.match(data, input_size=input_size)
 

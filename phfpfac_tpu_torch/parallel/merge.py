@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 
 from phfpfac_tpu_torch.compile.tables import CompiledDictionary, ShardTables
+from phfpfac_tpu_torch.utils.profile import count, span
 
 
 def _map_ids(shard: ShardTables, local: np.ndarray):
@@ -148,28 +149,29 @@ def merge_flat_matches(
                 parts.append((compiled.shards[s], m[:, 0], m[:, 2]))
         return _merge_charset(parts)
     pos_parts, id_parts, shard_parts, step_parts = [], [], [], []
-    for s, m in enumerate(shard_flat):
-        if m.size == 0:
-            continue
-        keep = m[:, 0] < input_size
-        if not keep.all():  # padding-region hits only; usually none
-            m = m[keep]
-        sh = compiled.shards[s]
-        if not sh.output_lists:
-            # plain-dictionary fast path: _map_ids' take is the
-            # identity, so skip the 3 pointless fancy-gathers (they
-            # were ~half the merge time at millions of matches on
-            # this rig's first-touch-fault-heavy memory)
-            pos_parts.append(m[:, 0])
-            step_parts.append(m[:, 1])
-            id_parts.append(sh.pattern_id_map[m[:, 2]].astype(np.int64))
-            shard_parts.append(np.full(len(m), s, dtype=np.int64))
-            continue
-        take, ids, sub, sub_base = _map_ids(sh, m[:, 2])
-        pos_parts.append(m[take, 0])
-        step_parts.append(m[take, 1] * sub_base + sub)
-        id_parts.append(ids)
-        shard_parts.append(np.full(take.size, s, dtype=np.int64))
+    with span("stage:merge.ids"):
+        for s, m in enumerate(shard_flat):
+            if m.size == 0:
+                continue
+            keep = m[:, 0] < input_size
+            if not keep.all():  # padding-region hits only; usually none
+                m = m[keep]
+            sh = compiled.shards[s]
+            if not sh.output_lists:
+                # plain-dictionary fast path: _map_ids' take is the
+                # identity, so skip the 3 pointless fancy-gathers (they
+                # were ~half the merge time at millions of matches on
+                # memory where first touches fault)
+                pos_parts.append(m[:, 0])
+                step_parts.append(m[:, 1])
+                id_parts.append(sh.pattern_id_map[m[:, 2]].astype(np.int64))
+                shard_parts.append(np.full(len(m), s, dtype=np.int64))
+                continue
+            take, ids, sub, sub_base = _map_ids(sh, m[:, 2])
+            pos_parts.append(m[take, 0])
+            step_parts.append(m[take, 1] * sub_base + sub)
+            id_parts.append(ids)
+            shard_parts.append(np.full(take.size, s, dtype=np.int64))
     if not pos_parts:
         return np.empty((0, 2), dtype=np.int64)
 
@@ -193,27 +195,34 @@ def merge_flat_matches(
     if len(pos_parts) == 1:
         pos, ids = pos_parts[0], id_parts[0]
     else:
-        pos = np.concatenate(pos_parts)
-        ids = np.concatenate(id_parts)
+        with span("stage:merge.concat"):
+            pos = np.concatenate(pos_parts)
+            ids = np.concatenate(id_parts)
     # per-shard flats arrive (pos, step)-sorted (decode_hits contract),
     # so the (pos, shard, step) ordering reduces to ONE stable sort by
     # pos over the shard-major concat — stability preserves shard then
     # step order at equal pos, and timsort's run detection makes
     # sorting a concat of sorted runs near-linear (the 3-key lexsort
     # was the match-dense merge bottleneck at ~14M rows)
-    if all(map(_part_sorted, pos_parts, step_parts)):
-        if len(pos_parts) == 1 or bool((np.diff(pos) >= 0).all()):
-            # already in (pos, shard, step) order (equal positions
-            # across shards land in concat = shard order): emit
-            # without sorting or permuting — at 14M match-dense rows
-            # the order-gathers alone cost seconds on this rig
+    with span("stage:merge.order"):
+        if all(map(_part_sorted, pos_parts, step_parts)):
+            if len(pos_parts) == 1 or bool((np.diff(pos) >= 0).all()):
+                # already in (pos, shard, step) order (equal positions
+                # across shards land in concat = shard order): emit
+                # without sorting or permuting — at 14M match-dense
+                # rows the order-gathers alone cost seconds
+                order, path = None, "merge.inorder"
+            else:
+                order, path = np.argsort(pos, kind="stable"), "merge.argsort"
+        else:
+            shard = np.concatenate(shard_parts)
+            step = np.concatenate(step_parts)
+            order, path = np.lexsort((step, shard, pos)), "merge.lexsort"
+    count(path)
+    with span("stage:merge.emit"):
+        if order is None:
             return np.stack([pos, ids], axis=1)
-        order = np.argsort(pos, kind="stable")
-    else:
-        shard = np.concatenate(shard_parts)
-        step = np.concatenate(step_parts)
-        order = np.lexsort((step, shard, pos))
-    return np.stack([pos[order], ids[order]], axis=1)
+        return np.stack([pos[order], ids[order]], axis=1)
 
 
 RENDER_BLOCK = 1 << 20  # rows a native render call takes
