@@ -889,10 +889,12 @@ def trace_by_stage(mt, by_name: dict) -> dict:
     """Device seconds of the kernels launched inside each stage's
     ``record_function`` range of a trace.  K1 launches through ctypes,
     outside any torch op, and the profiler links its kernel to no range:
-    its seconds are the trace's by kernel name."""
+    its seconds are the trace's by kernel name.  The program's own
+    ``stage:`` spans (``utils/profile.py``) lie inside these ranges and
+    are left out, so that no kernel counts twice."""
     out = dict.fromkeys(STAGES, 0.0)
     for e in mt.prof.events():
-        if e.name.startswith("stage:") and \
+        if e.name.startswith("stage:") and e.name[6:] in out and \
                 e.device_type == torch.autograd.DeviceType.CPU:
             out[e.name[6:]] += e.device_time_total / 1e6
     if not out["k1"]:

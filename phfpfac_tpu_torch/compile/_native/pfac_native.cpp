@@ -637,6 +637,143 @@ int64_t pfac_decode_hits_hash(
   return total;
 }
 
+// Ordered multi-shard hash decode: the final (base + pos, global id)
+// rows of every shard's hits, written once, in the merge's (pos, shard,
+// step) order (main.cc:303-324).  Each shard's hit_pos is strictly
+// increasing (fetch_hit_bits' order) and a hit's bits run low to high
+// (step order), so a walk by position across the S hit arrays, shard by
+// shard at an equal position, needs no sort.  The S bitmaps stay apart:
+// a duplicate pattern on both sides of a shard boundary gives a row in
+// each shard.
+//
+//   hit_pos, hb, h:   per shard, its hits (pointer arrays of S).
+//   slots, tsize_log2: per shard, the pattern hash of compile/native.py
+//                     _pattern_hash: int64 pairs [pattern offset in blob
+//                     (-1 = empty), (global id << 32) | length].
+//   out:              int64 [2 * total popcount over the shards' hb].
+//
+// Threads take disjoint position ranges; each range's start in every
+// shard comes by binary search, its output slice from popcounts, so
+// the rows are the same whatever the thread count.  Returns the number
+// of rows written.
+int64_t pfac_decode_ordered(
+    const uint8_t* data, int64_t n, int64_t n_shards,
+    const int64_t* const* hit_pos, const uint32_t* const* hb,
+    const int64_t* h,
+    const uint8_t* const* blob, const int64_t* const* slots,
+    const int64_t* tsize_log2,
+    int64_t base, int64_t max_t, int64_t n_threads, int64_t* out) {
+  const int64_t S = n_shards;
+  if (max_t > 32) max_t = 32;
+  int64_t total = 0, p_lo = INT64_MAX, p_hi = -1;
+  for (int64_t s = 0; s < S; ++s) {
+    if (h[s] == 0) continue;
+    total += h[s];
+    p_lo = std::min(p_lo, hit_pos[s][0]);
+    p_hi = std::max(p_hi, hit_pos[s][h[s] - 1]);
+  }
+  if (total == 0) return 0;
+  const int64_t T =
+      (n_threads <= 1 || total < (int64_t(1) << 16)) ? 1 : n_threads;
+
+  // lo[k * S + s]: shard s's first hit at or after range k's start
+  std::vector<int64_t> lo((T + 1) * S);
+  const int64_t span = p_hi + 1 - p_lo;
+  for (int64_t k = 0; k <= T; ++k) {
+    const int64_t p = p_lo + span * k / T;
+    for (int64_t s = 0; s < S; ++s) {
+      lo[k * S + s] =
+          k == T ? h[s]
+                 : std::lower_bound(hit_pos[s], hit_pos[s] + h[s], p) -
+                       hit_pos[s];
+    }
+  }
+
+  auto emit = [&](int64_t s, int64_t p, uint32_t rem, int64_t* o) {
+    const uint64_t mask = (uint64_t(1) << tsize_log2[s]) - 1;
+    const int64_t* sl = slots[s];
+    uint64_t hash = 1469598103934665603ULL;  // FNV-1a of data[p, p+j)
+    int64_t j = 0;
+    while (rem) {
+      const int t = __builtin_ctz(rem);
+      rem &= rem - 1;
+      if (t >= max_t) break;
+      const int64_t len = t + 1;
+      if (p + len > n) break;  // defensive: pad bits
+      for (; j < len; ++j) hash = (hash ^ data[p + j]) * 1099511628211ULL;
+      uint64_t slot = hash & mask;
+      while (sl[2 * slot] >= 0) {
+        const int64_t meta = sl[2 * slot + 1];
+        if ((meta & 0xffffffff) == len &&
+            std::memcmp(blob[s] + sl[2 * slot], data + p, len) == 0) {
+          *o++ = base + p;
+          *o++ = meta >> 32;
+          break;
+        }
+        slot = (slot + 1) & mask;
+      }
+    }
+    return o;
+  };
+
+  auto walk = [&](int64_t k, int64_t* o) -> int64_t {
+    int64_t* start = o;
+    std::vector<int64_t> i(lo.begin() + k * S, lo.begin() + (k + 1) * S);
+    const int64_t* end = lo.data() + (k + 1) * S;
+    for (;;) {
+      int64_t p = INT64_MAX;
+      for (int64_t s = 0; s < S; ++s)
+        if (i[s] < end[s]) p = std::min(p, hit_pos[s][i[s]]);
+      if (p == INT64_MAX) break;
+      for (int64_t s = 0; s < S; ++s) {
+        if (i[s] < end[s] && hit_pos[s][i[s]] == p) {
+          o = emit(s, p, hb[s][i[s]], o);
+          ++i[s];
+        }
+      }
+    }
+    return (o - start) / 2;
+  };
+
+  if (T == 1) return walk(0, out);
+  // each range's rows are at most its bits: exact slices, gaps (bits
+  // the table does not hold) compacted below
+  std::vector<int64_t> starts(T + 1, 0), written(T, 0);
+  {
+    std::vector<std::thread> threads;
+    threads.reserve(T);
+    for (int64_t k = 0; k < T; ++k) {
+      threads.emplace_back([&, k]() {
+        int64_t bits = 0;
+        for (int64_t s = 0; s < S; ++s)
+          for (int64_t x = lo[k * S + s]; x < lo[(k + 1) * S + s]; ++x)
+            bits += __builtin_popcount(hb[s][x]);
+        starts[k + 1] = bits;
+      });
+    }
+    for (auto& t : threads) t.join();
+  }
+  for (int64_t k = 0; k < T; ++k) starts[k + 1] += starts[k];
+  {
+    std::vector<std::thread> threads;
+    threads.reserve(T);
+    for (int64_t k = 0; k < T; ++k) {
+      threads.emplace_back(
+          [&, k]() { written[k] = walk(k, out + 2 * starts[k]); });
+    }
+    for (auto& t : threads) t.join();
+  }
+  int64_t rows = written[0];
+  for (int64_t k = 1; k < T; ++k) {
+    if (rows != starts[k] && written[k]) {
+      std::memmove(out + 2 * rows, out + 2 * starts[k],
+                   sizeof(int64_t) * 2 * written[k]);
+    }
+    rows += written[k];
+  }
+  return rows;
+}
+
 // GPU_match_result.txt's lines, "At position %4d, match pattern %d\n",
 // one per (pos, id) row (both >= 0) -> bytes written to out (at most 69
 // a row).

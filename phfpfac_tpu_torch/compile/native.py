@@ -144,6 +144,15 @@ def _load() -> ctypes.CDLL | None:
                 ctypes.c_int64,                                # tsize_log2
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
             ]
+            lib.pfac_decode_ordered.restype = ctypes.c_int64
+            lib.pfac_decode_ordered.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,  # data, n, S
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # pos,hb,h
+                ctypes.c_void_p, ctypes.c_void_p,              # blob, slots
+                ctypes.c_void_p,                               # tsize_log2
+                ctypes.c_int64, ctypes.c_int64,                # base, max_t
+                ctypes.c_int64, ctypes.c_void_p,               # threads, out
+            ]
             lib.pfac_render_rows.restype = ctypes.c_int64
             lib.pfac_render_rows.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -317,7 +326,12 @@ def _pattern_hash(shard):
     substring equals a pattern), so decode needs no trie walk at all —
     one table probe per set bit.  Slot values are the pattern's final
     state from a real dense-trie walk, keeping the output triples
-    byte-identical to the walk decode regardless of numbering."""
+    byte-identical to the walk decode regardless of numbering.
+
+    Returns (blob, slot_off, slot_len, slot_state, tsize_log2, slots):
+    ``slots`` holds the same table for the ordered decode, int64 pairs
+    [offset, (global id << 32) | length] a slot (the id is
+    ``pattern_id_map`` of the final state), so a probe reads one line."""
     cached = getattr(shard, "_decode_hash", None)
     if cached is not None:
         return cached
@@ -364,8 +378,10 @@ def _pattern_hash(shard):
         blob_parts.append(w)
         off += len(w)
     blob = np.frombuffer(b"".join(blob_parts), dtype=np.uint8)
+    ids = np.asarray(shard.pattern_id_map, dtype=np.int64)[slot_state]
+    slots = np.stack([slot_off, (ids << 32) | slot_len], axis=1)
     cached = (blob, slot_off, slot_len, slot_state,
-              int(tsize).bit_length() - 1)
+              int(tsize).bit_length() - 1, slots)
     shard._decode_hash = cached
     return cached
 
@@ -378,7 +394,7 @@ def decode_hits_hash_native(
     _pattern_hash).  Same contract as decode_hits_native."""
     lib = _load()
     assert lib is not None
-    blob, slot_off, slot_len, slot_state, tlog2 = _pattern_hash(shard)
+    blob, slot_off, slot_len, slot_state, tlog2, _ = _pattern_hash(shard)
     hb = np.ascontiguousarray(hb, dtype=np.uint32)
     hit_pos = np.ascontiguousarray(hit_pos, dtype=np.int64)
     data = np.ascontiguousarray(data, dtype=np.uint8)
@@ -394,6 +410,46 @@ def decode_hits_hash_native(
         tlog2, max_t, n_threads, out.ctypes.data if cap else None,
     )
     return out[: wrote * 3].reshape(-1, 3)
+
+
+def decode_ordered_native(
+    hbs: list, hit_poss: list, data: np.ndarray, shards: list,
+    max_t: int, base: int = 0, n_threads: int = 0,
+) -> np.ndarray:
+    """Ordered multi-shard hash decode (plain-dictionary shards only; see
+    _pattern_hash and pfac_decode_ordered): every shard's hits, one
+    ``hbs[s]`` / ``hit_poss[s]`` pair a shard with strictly increasing
+    positions, to int64 [(base + pos, global id)] rows in the merge's
+    (pos, shard, step) order."""
+    lib = _load()
+    assert lib is not None
+    if not len(hbs) == len(hit_poss) == len(shards):
+        raise ValueError("one hit array pair a shard")
+    hbs = [np.ascontiguousarray(b, dtype=np.uint32) for b in hbs]
+    hit_poss = [np.ascontiguousarray(p, dtype=np.int64) for p in hit_poss]
+    if any(len(b) != len(p) for b, p in zip(hbs, hit_poss)):
+        raise ValueError("hit positions and bitmaps differ in length")
+    tables = [_pattern_hash(sh) for sh in shards]
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    cap = sum(int(np.bitwise_count(b).sum()) for b in hbs if b.size)
+    out = np.empty(cap * 2, dtype=np.int64)
+    if n_threads <= 0:
+        n_threads = min(os.cpu_count() or 1, 16)
+
+    def ptrs(arrays):
+        return np.asarray([a.ctypes.data for a in arrays], dtype=np.uintp)
+
+    pos_p, hb_p = ptrs(hit_poss), ptrs(hbs)
+    blob_p, slot_p = ptrs([t[0] for t in tables]), ptrs([t[5] for t in tables])
+    h = np.asarray([len(b) for b in hbs], dtype=np.int64)
+    tlog2 = np.asarray([t[4] for t in tables], dtype=np.int64)
+    wrote = lib.pfac_decode_ordered(
+        data.ctypes.data, len(data), len(shards),
+        pos_p.ctypes.data, hb_p.ctypes.data, h.ctypes.data,
+        blob_p.ctypes.data, slot_p.ctypes.data, tlog2.ctypes.data,
+        base, max_t, n_threads, out.ctypes.data if cap else None,
+    )
+    return out[: wrote * 2].reshape(-1, 2)
 
 
 def decode_hits_native(

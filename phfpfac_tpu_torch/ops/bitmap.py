@@ -12,6 +12,8 @@ rows (master_kernel.cu:104-115) — the bitmap is 4 bytes/position.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -56,31 +58,65 @@ def decode_bitmap(
                        max_steps)
 
 
+def hash_decodes(shard: ShardTables) -> bool:
+    """Whether the native hash decode takes this shard: a plain
+    dictionary's shard (its pattern bytes, no charset output lists),
+    the native library built, ``PHFPFAC_NO_HASH_DECODE`` not set.
+    Plain dictionaries skip the trie walk entirely: bit t at pos means
+    data[pos..pos+t] IS a pattern, so decode is ONE open-addressed hash
+    probe per set bit (L2-resident table) instead of per-step
+    dense-table cache misses."""
+    from phfpfac_tpu_torch.compile import native
+
+    return (
+        shard.patterns is not None
+        and shard.output_lists is None
+        and os.environ.get("PHFPFAC_NO_HASH_DECODE") != "1"
+        and native.available()
+    )
+
+
 def decode_hits(
-    hb: np.ndarray,  # uint32 [h] bitmaps of the hit positions
-    hit_pos: np.ndarray,  # int64 [h]
+    hb,  # uint32 [h] bitmaps of the hit positions; a list: one a shard
+    hit_pos,  # int64 [h]; a list: one a shard
     data: bytes | np.ndarray,
     input_size: int,
-    shard: ShardTables,
+    shard: ShardTables | list[ShardTables],
     max_steps: int,
+    base: int = 0,
 ) -> np.ndarray:
-    """Sparse-form decode (see fetch_hit_bits)."""
+    """Sparse-form decode (see fetch_hit_bits) of one shard's hits:
+    int64 [(pos, step, shard-local state)] in (pos, step) order.
+
+    With ``shard`` the list of the dictionary's shards, each taken by
+    ``hash_decodes``, and ``hb`` and ``hit_pos`` a list of one array a
+    shard, in increasing position: the ordered decode, the final int64
+    [(base + pos, global id)] rows in the merge's (pos, shard, step)
+    order (``compile/native.py::decode_ordered_native``)."""
     with span("stage:result.decode"):
-        m = _decode_hits(hb, hit_pos, data, input_size, shard, max_steps)
+        if isinstance(shard, list):
+            from phfpfac_tpu_torch.compile import native
+
+            m = native.decode_ordered_native(
+                hb, hit_pos, _as_bytes(data)[:input_size], shard,
+                min(max_steps, 32), base)
+        else:
+            m = _decode_hits(hb, hit_pos, data, input_size, shard,
+                             max_steps)
     count("result.rows", len(m))
     return m
+
+
+def _as_bytes(data) -> np.ndarray:
+    if isinstance(data, (bytes, bytearray)):
+        return np.frombuffer(bytes(data), dtype=np.uint8)
+    return np.asarray(data, dtype=np.uint8)
 
 
 def _decode_hits(hb, hit_pos, data, input_size, shard, max_steps):
     if hit_pos.size == 0:
         return np.empty((0, 3), dtype=np.int64)
-    arr = (
-        np.frombuffer(bytes(data), dtype=np.uint8)
-        if isinstance(data, (bytes, bytearray))
-        else np.asarray(data, dtype=np.uint8)
-    )
-    import os
-
+    arr = _as_bytes(data)
     from phfpfac_tpu_torch.compile import native
 
     if native.available():
@@ -88,15 +124,7 @@ def _decode_hits(hb, hit_pos, data, input_size, shard, max_steps):
         # threaded C++ paths are the fast lane (the NumPy code below
         # stays the semantics oracle,
         # tests/test_native.py::test_decode_hits_native_parity).
-        # Plain dictionaries skip the trie walk entirely: bit t at pos
-        # means data[pos..pos+t] IS a pattern, so decode is ONE
-        # open-addressed hash probe per set bit (L2-resident table)
-        # instead of per-step dense-table cache misses.
-        if (
-            shard.patterns is not None
-            and shard.output_lists is None
-            and os.environ.get("PHFPFAC_NO_HASH_DECODE") != "1"
-        ):
+        if hash_decodes(shard):
             return native.decode_hits_hash_native(
                 hb, hit_pos, arr[:input_size], shard, min(max_steps, 32)
             )

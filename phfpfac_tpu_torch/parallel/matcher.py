@@ -39,6 +39,7 @@ from phfpfac_tpu_torch.ops.bitmap import (
     decode_bitmap,
     decode_hits,
     fetch_hit_bits,
+    hash_decodes,
 )
 from phfpfac_tpu_torch.ops.common import (
     pad_input,
@@ -397,7 +398,21 @@ class Matcher:
             return [None] * len(self.compiled.shards)
         return scanner
 
-    def _dispatch(self, data: bytes, input_size: int, padded_dev=None):
+    def _takes_ordered(self, kind, entries) -> bool:
+        """Whether a chunk's rows take the ordered decode: every shard
+        has a bitmap scanner of its own (no split shard, no turbo shard,
+        not the multi kernel), and the native hash decode takes every
+        shard of a plain dictionary (``hash_decodes``)."""
+        return (
+            kind == "depth"
+            and not getattr(self.compiled, "charset", False)
+            and all(e is not None and not isinstance(e, tuple)
+                    for e in entries)
+            and all(map(hash_decodes, self.compiled.shards))
+        )
+
+    def _dispatch(self, data: bytes, input_size: int, padded_dev=None,
+                  chunk: tuple[int, int] | None = None):
         """Start every shard's device scan; return per-shard resolvers
         (each ``resolver()`` -> flat matches), or None when the kernels
         do not take this dictionary (the multi kernel past its 32 steps,
@@ -408,7 +423,13 @@ class Matcher:
 
         ``padded_dev``: the padded window as a tensor already on the
         device (``stage_for_chunked``), in place of this call's pad and
-        upload; ``data`` stays the host copy the decoders read."""
+        upload; ``data`` stays the host copy the decoders read.
+
+        ``chunk``: (base, body), the call scans a chunk whose positions
+        below ``body`` are its own.  Where ``_takes_ordered`` holds, the
+        call returns ONE resolver, whose result is the chunk's final
+        int64 [(base + pos, global id)] rows in the merge's order: each
+        shard's hits below ``body`` fetched, all decoded at once."""
         max_steps = padded_steps(self.compiled.max_pat_len)
         if self._train is None and self._scanners is None \
                 and len(data) >= 4096:
@@ -448,6 +469,21 @@ class Matcher:
 
             return [make_resolve(s, shard)
                     for s, shard in enumerate(self.compiled.shards)]
+
+        if chunk is not None and self._takes_ordered(kind, scanner):
+            base, body = chunk
+            launched = [ds.scan_async(padded, input_size, self.config,
+                                      max_steps) for ds in scanner]
+
+            def resolve_ordered():
+                hits = [fetch_hit_bits(verify()[1], body)
+                        for _cnt, _bits, verify in launched]
+                return decode_hits([hb for _pos, hb in hits],
+                                   [pos for pos, _hb in hits], data,
+                                   input_size, list(self.compiled.shards),
+                                   max_steps, base=base)
+
+            return [resolve_ordered]
 
         def bitmap_dispatch(ds, st):
             # dispatch only: verify(), run at resolve time, answers a
@@ -514,12 +550,14 @@ class Matcher:
                 resolvers.append(bitmap_dispatch(entry, shard))
         return resolvers
 
-    def _match_flat_pallas(self, data: bytes, input_size: int) -> list:
+    def _match_flat_pallas(self, data: bytes, input_size: int,
+                           chunk=None) -> list:
         """Per-shard flat matches (pos, step, shard-local state) via the
         kernels; shard-local states are recovered from the matched
-        substrings (ops.bitmap)."""
+        substrings (ops.bitmap).  With ``chunk``, the ordered decode's
+        one block where it engages (see ``_dispatch``)."""
         with self.timer.phase("match"):
-            resolvers = self._dispatch(data, input_size)
+            resolvers = self._dispatch(data, input_size, chunk=chunk)
             if resolvers is not None:
                 return [r() for r in resolvers]
         return self._match_flat_turbo(data, input_size)
@@ -579,10 +617,15 @@ class Matcher:
 
         n_shards = len(self.compiled.shards)
         per_shard: list[list] = [[] for _ in range(n_shards)]
+        blocks: list[np.ndarray] = []  # the ordered decode's, a chunk each
         pending: list[tuple[int, int, list]] = []
+        ordered = False
 
         def resolve_one():
             base, body, resolvers = pending.pop(0)
+            if ordered:
+                blocks.append(resolvers[0]())
+                return
             for s, r in enumerate(resolvers):
                 m = r()
                 with span("stage:chunk.cut"):
@@ -613,9 +656,11 @@ class Matcher:
                     window, wend - base,
                     padded_dev=None if device_data is None
                     else device_data[base:base + wpad],
+                    chunk=(base, body),
                 )
                 if resolvers is None:
                     break  # no kernel path: unchunked turbo scan below
+                ordered = self._takes_ordered(*self._get_pallas_scanner())
                 pending.append((base, body, resolvers))
                 if len(pending) > max_outstanding:
                     resolve_one()
@@ -623,6 +668,9 @@ class Matcher:
             else:
                 while pending:
                     resolve_one()
+                if ordered:
+                    return merge_flat_matches(self.compiled, blocks,
+                                              input_size)
                 with span("stage:chunk.concat"):
                     flats = [
                         np.concatenate(parts) if parts else
@@ -642,7 +690,8 @@ class Matcher:
             flats = self._match_flat_turbo(data, input_size)
             return merge_flat_matches(self.compiled, flats, input_size)
         if self.engine == "pallas":
-            flats = self._match_flat_pallas(data, input_size)
+            flats = self._match_flat_pallas(data, input_size,
+                                            chunk=(0, input_size))
             return merge_flat_matches(self.compiled, flats, input_size)
         rows = self.match_rows(data, input_size=input_size)
         return merge_match_rows(self.compiled, rows, input_size)

@@ -138,7 +138,18 @@ def merge_flat_matches(
     """Merge per-shard flat (pos, step, local-state) matches.
 
     Same ordering contract as merge_match_rows: (pos, shard, step);
-    charset dictionaries use the canonical (pos, length, id) order."""
+    charset dictionaries use the canonical (pos, length, id) order.
+
+    Parts of two columns are the ordered decode's blocks instead
+    (``Matcher._dispatch`` with a chunk): a chunk's final (pos, global
+    id) rows each, already in this order, chunks in position order; they
+    are only joined (path ``merge.ordered``)."""
+    if shard_flat and all(m.shape[1:] == (2,) for m in shard_flat):
+        count("merge.ordered")
+        if len(shard_flat) == 1:
+            return shard_flat[0]
+        with span("stage:merge.concat"):
+            return np.concatenate(shard_flat)
     if getattr(compiled, "charset", False):
         parts = []
         for s, m in enumerate(shard_flat):
@@ -147,6 +158,7 @@ def merge_flat_matches(
             m = m[m[:, 0] < input_size]
             if len(m):
                 parts.append((compiled.shards[s], m[:, 0], m[:, 2]))
+        count("merge.charset")
         return _merge_charset(parts)
     pos_parts, id_parts, shard_parts, step_parts = [], [], [], []
     with span("stage:merge.ids"):

@@ -1154,3 +1154,42 @@ def test_phf_tiles_on_deep_lists(dev):
         bits = K4.phf_scan_multi(padded, multi, input_size=len(data),
                                  max_steps=ms)[1]
         assert int(((bits[:, :len(data)] >> 31) & 1).sum()) >= 8192 - 31
+
+
+# ---- the ordered decode behind K1 ------------------------------------------
+
+def test_chunked_words_take_the_ordered_decode(dev):
+    """``match_chunked`` on the card, K1 in each of 4 shards of a word
+    dictionary (the CLI's cut, chunks whose edges words cross): the
+    ordered decode writes the oracle's rows, once a request."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from phfpfac_tpu_torch.utils import profile as P
+
+    rng = np.random.default_rng(15)
+    letters = np.frombuffer(b"etaoinshrdlucmfwypvbgkqjxz", dtype=np.uint8)
+    freq = 1.0 / np.arange(1, len(letters) + 1)
+    words = list(dict.fromkeys(
+        bytes(rng.choice(letters, int(rng.integers(2, 11)),
+                         p=freq / freq.sum()))
+        for _ in range(3000)))
+    text = b" ".join(words[int(i)] for i in
+                     rng.integers(0, len(words), 40_000))[:256 << 10]
+    cfg = PfacConfig(width=4096, num_shards=4, truncation="segment",
+                     segment_bytes=4096, halo_bytes=512)
+    pats = [Pattern(i + 1, w) for i, w in enumerate(words)]
+    m = Matcher(compile_patterns(pats, cfg), cfg, device=dev)
+    chunk = 64 << 10
+    m.match_chunked(text, chunk_bytes=chunk)  # builds the tables
+    assert all(isinstance(s, K1.PlanShardScanner) for s in m._get_scanners())
+    before = P.snapshot()
+    K1.launches = 0
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = m.match_chunked(text, chunk_bytes=chunk)
+        torch.cuda.synchronize()
+    counters = P.difference(before, P.snapshot())["counters"]
+    assert K1.launches == 4 * 4  # one a shard and chunk
+    assert counters["merge.ordered"] == 1 and "merge.argsort" not in counters
+    want = np.asarray(match_oracle(pats, text, cfg), np.int64)
+    np.testing.assert_array_equal(got, want)
+    assert len(want) > len(text) // 4

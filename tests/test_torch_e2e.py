@@ -193,3 +193,24 @@ def test_the_slice_equals_the_jax_matcher(name):
     assert np.array_equal(np.asarray(got, np.int64), want)
     found = set(map(tuple, want.tolist()))
     assert planted and all(p in found for p in planted)
+
+
+def test_trace_by_stage_leaves_out_the_programs_spans():
+    """The program's own ``stage:`` spans sit inside the harness's stage
+    ranges: they neither count twice nor raise (on the card only, where
+    the trace is read by stage)."""
+    import types
+
+    import torch
+
+    def event(name, seconds):
+        return types.SimpleNamespace(
+            name=name, device_type=torch.autograd.DeviceType.CPU,
+            device_time_total=seconds * 1e6)
+
+    mt = types.SimpleNamespace(prof=types.SimpleNamespace(events=lambda: [
+        event("stage:fetch", 2.0), event("stage:result.fetch", 2.0),
+        event("stage:chunk.window", 1.0), event("stage:decode", 0.5)]))
+    out = chip_e2e.trace_by_stage(mt, {"anon::plan_scan_kernel": 0.25})
+    assert out["fetch"] == 2.0 and out["decode"] == 0.5
+    assert out["k1"] == 0.25 and set(out) == set(chip_e2e.STAGES)

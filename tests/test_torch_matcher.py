@@ -142,8 +142,9 @@ def test_device_resident_chunking_equals_chunked_and_match(trunc):
     assert isinstance(staged, torch.Tensor) and staged.dtype == torch.uint8
     windows = []
     real = tm._dispatch
-    tm._dispatch = lambda w, n, padded_dev=None: (
-        windows.append(padded_dev) or real(w, n, padded_dev=padded_dev))
+    tm._dispatch = lambda w, n, padded_dev=None, **kw: (
+        windows.append(padded_dev) or real(w, n, padded_dev=padded_dev,
+                                           **kw))
     got = tm.match_chunked(data, chunk_bytes=1024, device_data=staged)
     assert len(windows) == 9 and len({w.shape for w in windows}) == 1
     assert all(w.untyped_storage().data_ptr()

@@ -1,7 +1,8 @@
 """The benchmark's readers of the program's spans (``benchmark/metrics/``,
-``"source": "program_span"``): a traced CPU rehearsal of ``benchmark/
-run.py`` reports the chunked cell's four, each positive and read under
-its guard; an untraced one none; the invocation cell's four read the
+``"source": "program_span"``): the chunked cell's four read under their
+guard where each shard's rows are cut and joined (the per-shard path),
+and nothing where the ordered decode leaves nothing to cut, as in a
+rehearsal of ``benchmark/run.py``; the invocation cell's four read the
 plan-table build's phases where the run is on the card.  On the card,
 ``MatchTrace`` counts the scan kernels the benchmark's trace reader
 counts."""
@@ -39,17 +40,22 @@ def rehearse(cell, trace):
 @pytest.mark.parametrize("cell", ["englishdic.text", "englishdic.invoke"])
 @pytest.mark.parametrize("trace", ["0", "1"])
 def test_rehearsal_prints_what_it_reads(cell, trace):
+    """Neither cell prints the eight on the CPU: the text cell takes the
+    ordered decode, which opens no ``stage:chunk.cut`` (the guard of the
+    four), and the invocation cell's are read on the card only."""
     metrics = rehearse(cell, trace)
     for name in TEXT + INVOKE:
-        want = trace == "1" and cell == "englishdic.text" and name in TEXT
-        assert (name in metrics) == want, name
-        if want:
-            assert metrics[name]["value"] > 0, name
+        assert name not in metrics, name
 
 
 def test_text_guard():
     """The readers read nothing where the spans do not hold one cut a
-    shard, chunk and request, or where the program has no spans."""
+    shard, chunk and request, or where the program has no spans.  The
+    cell as it runs takes the ordered decode: the merge counts
+    ``merge.ordered`` once a request, no cut opens, and the four read
+    nothing.  Spans of the per-shard path's shape (one cut a shard, chunk
+    and request, one concatenation a request, the merge's) are read; one
+    cut fewer reads nothing."""
     from benchmark import run, spec
     from phfpfac_tpu_torch.utils import profile
 
@@ -57,15 +63,24 @@ def test_text_guard():
     cell = run.shrink(spec.cell("englishdic.text"), run.REHEARSAL)
     r = run.Run(cell, seed=SEED, seconds=0.3, trace=True, device="cpu")
     out = r.go()
-    spans = profile.snapshot()["spans"]
+    assert out["correct"]
+    snap = profile.snapshot()
     n, chunks = len(r.loop.requests), r.loop.chunks
-    assert spans["stage:chunk.cut"][1] == n * chunks * 4
-    assert spans["stage:chunk.concat"][1] == n
+    assert snap["counters"]["merge.ordered"] == n
+    assert "merge.argsort" not in snap["counters"]
+    assert not {"stage:chunk.cut", "stage:chunk.concat",
+                "stage:merge.order"} & set(snap["spans"])
+    assert not set(TEXT) & set(out["metrics"])
+    assert all(spec.reader(name)(r) is None for name in TEXT)
+    with profile._lock:  # the per-shard path's spans, as it records them
+        profile._spans.update({
+            "stage:chunk.cut": [0.4, n * chunks * 4],
+            "stage:chunk.concat": [0.1, n], "stage:merge.ids": [0.2, n],
+            "stage:merge.order": [0.3, n], "stage:merge.emit": [0.2, n]})
     for name in TEXT:
-        assert out["metrics"][name]["value"] > 0
-    want = (spans["stage:chunk.cut"][0] + spans["stage:chunk.concat"][0]) \
-        / (n * chunks) * 1e3
-    assert out["metrics"]["matcher.rows_ms"]["value"] == pytest.approx(want)
+        assert spec.reader(name)(r) > 0, name
+    assert spec.reader("matcher.rows_ms")(r) == pytest.approx(
+        0.5 / (n * chunks) * 1e3)
     with profile._lock:
         profile._spans["stage:chunk.cut"][1] -= 1
     assert all(spec.reader(name)(r) is None for name in TEXT)

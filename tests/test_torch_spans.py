@@ -20,10 +20,18 @@ from phfpfac_tpu_torch.utils import profile as P
 
 SHARDS = 4
 CHUNK = 1536  # three segments: 4 chunks of the 5,000 B corpus
-MATCH_SPANS = ("chunk.window", "input.upload", "input.stage",
-               "scan.launch", "result.fetch", "result.decode", "chunk.cut",
-               "chunk.concat", "merge.ids", "merge.concat", "merge.order",
-               "merge.emit")
+# spans a match_chunked call opens, by path: "ordered" (the ordered
+# decode, every shard a plain plan shard) and "per_shard" (the hash
+# decode turned off: each shard decoded, cut and merged on its own)
+MATCH_SPANS = {
+    "ordered": ("chunk.window", "input.upload", "input.stage",
+                "scan.launch", "result.fetch", "result.decode",
+                "merge.concat"),
+    "per_shard": ("chunk.window", "input.upload", "input.stage",
+                  "scan.launch", "result.fetch", "result.decode",
+                  "chunk.cut", "chunk.concat", "merge.ids", "merge.concat",
+                  "merge.order", "merge.emit"),
+}
 
 
 def _words_and_text(seed=5, size=5000):
@@ -74,29 +82,37 @@ def test_no_capture_records_nothing(setup):
     assert P.snapshot() == {"spans": {}, "counters": {}}
 
 
-def test_match_chunked_spans(setup):
+@pytest.mark.parametrize("path", ["ordered", "per_shard"])
+def test_match_chunked_spans(setup, path, monkeypatch):
     m, text, want = setup
+    if path == "per_shard":
+        monkeypatch.setenv("PHFPFAC_NO_HASH_DECODE", "1")
     got, rec, events = captured(
         lambda: m.match_chunked(text, chunk_bytes=CHUNK))
     np.testing.assert_array_equal(got, want)  # the same rows
     chunks = -(-len(text) // CHUNK)
     assert chunks >= 3
     per_chunk = {"chunk.window": 1, "input.upload": 1}
+    if path == "ordered":
+        per_chunk["result.decode"] = 1  # every shard's hits at once
     per_request = {"chunk.concat", "merge.ids", "merge.concat",
                    "merge.order", "merge.emit"}
     spans = rec["spans"]
-    for name in MATCH_SPANS:
+    assert set(spans) == {f"stage:{name}" for name in MATCH_SPANS[path]}
+    for name in MATCH_SPANS[path]:
         calls = spans[f"stage:{name}"][1]
         if name in per_request:
             assert calls == 1, name
         else:
             assert calls == chunks * per_chunk.get(name, SHARDS), name
         assert spans[f"stage:{name}"][0] > 0
-    assert not any(k.startswith("stage:tables.") for k in spans)
-    assert "stage:scan.verify" not in spans  # no compaction here
     c = rec["counters"]
-    # rows decoded: the overlap's are decoded twice and cut once
-    assert c["result.rows"] >= len(want) and c["merge.argsort"] == 1
+    if path == "ordered":
+        # only a chunk's own hits are fetched: each row decoded once
+        assert c["result.rows"] == len(want) and c["merge.ordered"] == 1
+    else:
+        # rows decoded: the overlap's are decoded twice and cut once
+        assert c["result.rows"] >= len(want) and c["merge.argsort"] == 1
     assert c["fetch.bytes"] == 16 * c["result.hits"] > 0
     # each span lies on the profiler's timeline, and none nests another
     cpu = [e for e in events
@@ -121,7 +137,8 @@ def test_match_trace_program(setup):
     with P.trace(device="cpu") as mt:
         got = m.match_chunked(text, chunk_bytes=CHUNK)
     np.testing.assert_array_equal(got, want)
-    assert mt.program["spans"]["stage:chunk.concat"][1] == 1
+    assert mt.program["spans"]["stage:merge.concat"][1] == 1
+    assert mt.program["counters"]["merge.ordered"] == 1
     assert mt.program == P.difference({"spans": {}, "counters": {}},
                                       P.snapshot())
     assert mt.device_events() == []
@@ -200,7 +217,8 @@ def test_profile_writes_the_spans_file(tmp_path):
     got = json.loads(spans.read_text())
     assert got["wall_seconds"] > 0
     for name in ("tables.fill", "input.upload", "scan.launch",
-                 "result.fetch", "result.decode", "merge.order"):
+                 "result.fetch", "result.decode"):
         assert got["spans"][f"stage:{name}"][1] >= 1, name
+    assert got["counters"]["merge.ordered"] >= 1
     assert got["counters"]["fetch.bytes"] == 16 * got["counters"][
         "result.hits"]
