@@ -36,7 +36,6 @@ if str(ROOT) not in sys.path:
 
 from benchmark import check, spec  # noqa: E402
 from benchmark.gen import inputs  # noqa: E402
-from benchmark.reference.ac import Automaton  # noqa: E402
 
 
 def by_id(want: np.ndarray) -> np.ndarray:
@@ -51,11 +50,12 @@ def no_overlap(want: np.ndarray, chunk: int) -> np.ndarray:
 def wants(cell: spec.Cell, seed: int, answers: int):
     """(the reference's rows of each answer a run checks, the chunk the
     program scans them in, or None)."""
-    config, traffic = cell.config, cell.traffic
-    pats, words = inputs.dictionary(config)
-    corpus, _planted = inputs.corpus(config, traffic, pats, words, seed)
-    loop = spec.loop(traffic["loop"])
-    want = loop.reference(Automaton(pats), config, traffic, corpus)
+    config, traffic, root = cell.config, cell.traffic, cell.root
+    pats, words = inputs.dictionary(config, root)
+    corpus, _planted = inputs.corpus(config, traffic, pats, words, seed, root)
+    loop = spec.loop(traffic["loop"], root)
+    ref = spec.reference(config, root)(pats)
+    want = loop.reference(ref, config, traffic, corpus)
     return [want(loop.key(traffic, len(corpus), k))
             for k in range(answers)], traffic.get("chunk_bytes")
 

@@ -6,33 +6,30 @@ The dictionary is the deployment's: it comes from the configuration's own
 frequencies.  The run's seed draws the corpus: which words follow which,
 the random bytes, and where the dictionary's patterns are planted.  Every
 seed gets the same sizes, the same number of plants and the same mix.
+
+What a dictionary or a corpus is made of is its kind's, a file of its own
+found by name (``spec.dictionary``, ``spec.corpus``): the configuration's
+``dictionary.kind``, the traffic's ``corpus``.
 """
 
 from __future__ import annotations
 
 import zlib
+from pathlib import Path
 
 import numpy as np
 
+from benchmark import spec
 from benchmark.gen import words as w
 
 MIB = 1 << 20
 
 
-def dictionary(config: dict) -> tuple[list, list]:
-    """(patterns, the words the text is made of) of a configuration:
-    ``english_words`` (the words are the patterns) or ``titles`` (titles
-    over the same words' text)."""
+def dictionary(config: dict, root: Path = spec.ROOT) -> tuple[list, list]:
+    """(patterns, the words a text corpus is made of) of a configuration,
+    by its dictionary kind."""
     d = config["dictionary"]
-    rng = np.random.default_rng(d["seed"])
-    words = w.make_english_words(rng, d["text_words"])
-    if d["kind"] == "english_words":
-        pats = words[:d["count"]]
-    elif d["kind"] == "titles":
-        pats = w.make_titles(rng, d["count"], n_long=d["long"])
-    else:
-        raise ValueError(f"unknown dictionary kind {d['kind']!r}")
-    return pats, words
+    return spec.dictionary(d["kind"], root).make(d)
 
 
 def run_rng(seed: int, *names) -> np.random.Generator:
@@ -43,28 +40,41 @@ def run_rng(seed: int, *names) -> np.random.Generator:
 
 
 def corpus(config: dict, traffic: dict, pats: list, words: list,
-           seed: int) -> tuple[bytes, list]:
+           seed: int, root: Path = spec.ROOT) -> tuple[bytes, list]:
     """(corpus, planted (position, id)) of ``traffic["corpus_bytes"]``
-    bytes: ``text`` over the configuration's words at their frequencies,
-    or ``random`` bytes, with one planted pattern per
+    bytes of the traffic's corpus kind, with one planted pattern per
     ``64 MiB / plants_per_64mib`` bytes."""
     size = traffic["corpus_bytes"]
     rng = run_rng(seed, config["name"], traffic["name"])
-    base = None
-    if traffic["corpus"] == "text":
-        rank = np.random.default_rng([*np.atleast_1d(
-            config["dictionary"]["seed"]).tolist(), 1])
-        base = w.make_english_text(rng, words, size, rank_rng=rank)
-    elif traffic["corpus"] != "random":
-        raise ValueError(f"unknown corpus kind {traffic['corpus']!r}")
+    base = spec.corpus(traffic["corpus"], root)(rng, config, traffic, pats,
+                                                words)
     plants = max(1, round(size * traffic["plants_per_64mib"] / (64 * MIB)))
     return w.make_corpus(rng, pats, size, plants=plants, base=base)
 
 
-def pattern_file(pats: list, path: str) -> str:
-    """The patterns as the CLI reads them: one a line, in id order."""
-    if any(b"\n" in p for p in pats):
+def escaped(config: dict) -> bool:
+    """Whether the configuration's pattern file is written with escapes
+    (``"pattern_file": "escapes"``) and compiled as the CLI's
+    ``--escapes`` reads it; without the key it is raw bytes.  Raw stays
+    the default: it is the file the upstream's documented ``gphf`` run
+    reads, and the program reads it several times faster, which
+    ``englishdic.invoke`` pays in every invocation it times."""
+    kind = config.get("pattern_file")
+    if kind not in (None, "escapes"):
+        raise ValueError(f"unknown pattern file format {kind!r}")
+    return kind == "escapes"
+
+
+def pattern_file(pats: list, path: str, escapes: bool = False) -> str:
+    """The patterns as the CLI reads them: one a line, in id order; with
+    ``escapes`` every byte as ``\\xNN``, so that any byte, a newline too,
+    can be in a pattern."""
+    if escapes:
+        lines = ["".join(f"\\x{b:02x}" for b in p).encode() for p in pats]
+    elif any(b"\n" in p for p in pats):
         raise ValueError("a pattern holds a newline")
+    else:
+        lines = pats
     with open(path, "wb") as f:
-        f.write(b"".join(p + b"\n" for p in pats))
+        f.write(b"".join(p + b"\n" for p in lines))
     return path

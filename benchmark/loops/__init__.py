@@ -6,7 +6,8 @@ Each loop builds the program's state in ``setup`` (and warms up the
 shapes its traffic uses), runs the measured window in ``window``, times
 its stages once more in ``serial`` in a traced run, and names what its
 ``k``-th request reads (``key``) and what the plain reference says that
-request should answer (``reference``): ``answers`` pairs every answer the
+request should answer (``reference``, from the configuration's plain
+reference, ``spec.reference``): ``answers`` pairs every answer the
 program gave with it, and ``control.py`` reads the same rows.  The
 program is used only through its public entry points; stage timers are
 swapped into its functions by name (``clock``).
@@ -22,7 +23,6 @@ import numpy as np
 
 from benchmark import clock as clk
 from benchmark.gen import inputs
-from benchmark.reference.ac import Automaton
 from benchmark.trace import bench_range
 
 
@@ -77,9 +77,9 @@ class Loop:
         raise NotImplementedError
 
     @classmethod
-    def reference(cls, ac: Automaton, config: dict, traffic: dict,
-                  corpus: bytes):
-        """The function ``key -> rows`` the plain reference answers."""
+    def reference(cls, ac, config: dict, traffic: dict, corpus: bytes):
+        """The function ``key -> rows`` the plain reference ``ac`` (built
+        from the patterns, ``spec.reference``) answers."""
         raise NotImplementedError
 
     def range(self, name):
@@ -88,13 +88,21 @@ class Loop:
 
     def inputs(self):
         run = self.run
-        self.pats, words = inputs.dictionary(self.config)
+        root = run.cell.root
+        self.pats, words = inputs.dictionary(self.config, root)
         self.corpus, self.planted = inputs.corpus(
-            self.config, self.traffic, self.pats, words, run.seed)
+            self.config, self.traffic, self.pats, words, run.seed, root)
         self.n = len(self.corpus)
+        self.escapes = inputs.escaped(self.config)
         self.pat_file = inputs.pattern_file(
-            self.pats, os.path.join(run.tmp, "patterns.txt"))
+            self.pats, os.path.join(run.tmp, "patterns.txt"), self.escapes)
         self.cfg = program_config(self.config)
+
+    def compile(self):
+        """The program's compile of the pattern file, as the CLI reads it
+        (with ``--escapes`` where the configuration's file has them)."""
+        return port().compile_dictionary(self.pat_file, self.cfg,
+                                         escapes=self.escapes)
 
     def serial(self):
         pass
@@ -114,7 +122,7 @@ class Loop:
     def release(self):
         """Drop the program's state (before the reference runs)."""
 
-    def answers(self, ac: Automaton):
+    def answers(self, ac):
         """(parts, want, counted) of every answer the run gave."""
         want = self.reference(ac, self.config, self.traffic, self.corpus)
         for r, counted in [(r, False) for r in self.uncounted] + \

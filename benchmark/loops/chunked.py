@@ -37,7 +37,7 @@ class Chunked(Loop):
         p = port()
         self.chunk = self.traffic["chunk_bytes"]
         self.chunks = -(-self.n // self.chunk)
-        self.compiled = p.compile_dictionary(self.pat_file, self.cfg)
+        self.compiled = self.compile()
         self.matcher = p.Matcher(self.compiled, self.cfg,
                                  device=self.run.device)
         # the warm-up request (shift 0) trains the plan layout on the

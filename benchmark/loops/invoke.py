@@ -47,7 +47,7 @@ class Invoke(Loop):
         self.invocations.append(dict(tables_s=0.0))
         t0 = time.perf_counter()
         with self.range("compile"):
-            compiled = p.compile_dictionary(self.pat_file, self.cfg)
+            compiled = self.compile()
         t1 = time.perf_counter()
         with self.range("match"):
             m = p.Matcher(compiled, self.cfg, device=self.run.device)

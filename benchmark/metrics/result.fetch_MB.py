@@ -1,39 +1,17 @@
 """The result download, MB a chunk of the traced window: the program's
 counter ``fetch.bytes`` (each ``fetch_hit_bits`` call's (position,
-bitmap) pairs, 16 B a hit), over the window's requests x chunks."""
+bitmap) pairs, 16 B a hit), over the window's requests x chunks, where
+the spans cover the window on either result path
+(``spans.result_window``)."""
 
-
-def window_spans(run):
-    """The program's spans and counters of the traced window, or None:
-    the capture starts after the warm-up and ends before the serial
-    pass, and the program records only under a capture, so its totals
-    are the window's.  None unless they hold one ``stage:chunk.cut`` a
-    shard, chunk and request and one ``stage:chunk.concat`` a request (a
-    program without these spans reads nothing)."""
-    loop = run.loop
-    if run.trace is None or loop.kind != "chunked" or not loop.requests:
-        return None
-    from phfpfac_tpu_torch.utils import profile
-
-    if not hasattr(profile, "snapshot"):
-        return None
-    snap = profile.snapshot()
-    n = len(loop.requests)
-    calls = {k: v[1] for k, v in snap["spans"].items()}
-    if calls.get("stage:chunk.concat") != n or calls.get(
-            "stage:chunk.cut") != n * loop.chunks * \
-            run.cell.config["num_shards"]:
-        return None
-    return snap, n * loop.chunks
-
-
-def seconds(snap, *names):
-    return sum(snap["spans"].get(f"stage:{k}", (0.0, 0))[0] for k in names)
+from benchmark import spans
 
 
 def read(run):
-    got = window_spans(run)
+    got = spans.result_window(run)
     if got is None:
         return None
     snap, chunks = got
-    return snap["counters"].get("fetch.bytes", 0) / chunks / 1e6
+    if "fetch.bytes" not in snap["counters"]:
+        return None
+    return snap["counters"]["fetch.bytes"] / chunks / 1e6

@@ -2,7 +2,15 @@
 span ``stage:merge.order`` (the sorted-runs checks and the stable
 ``argsort`` or the ``lexsort``; the counters ``merge.inorder``,
 ``merge.argsort``, ``merge.lexsort`` say which ran), over the window's
-requests x chunks."""
+requests x chunks.
+
+Not a metric of ``BENCHMARK.json`` any more: the cells take the ordered
+result path, which opens no ``stage:chunk.cut``, and the per-shard path's
+result stages are read by ``result.decode_ms``, ``result.join_ms`` and
+``result.fetch_ms``.  Kept while ``tests/test_torch_span_metrics.py``
+reads it by name: the change that rewrites that test deletes this file
+with it, so that no second guard over the same spans stays beside
+``benchmark/spans.py``."""
 
 
 def window_spans(run):

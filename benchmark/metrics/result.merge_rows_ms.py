@@ -2,7 +2,15 @@
 spans ``stage:merge.ids`` (padding filter and id map a shard),
 ``stage:merge.concat`` (the positions' and ids' concatenations) and
 ``stage:merge.emit`` (the final gathers and ``np.stack``), over the
-window's requests x chunks."""
+window's requests x chunks.
+
+Not a metric of ``BENCHMARK.json`` any more: the cells take the ordered
+result path, which opens no ``stage:chunk.cut``, and the per-shard path's
+result stages are read by ``result.decode_ms``, ``result.join_ms`` and
+``result.fetch_ms``.  Kept while ``tests/test_torch_span_metrics.py``
+reads it by name: the change that rewrites that test deletes this file
+with it, so that no second guard over the same spans stays beside
+``benchmark/spans.py``."""
 
 
 def window_spans(run):

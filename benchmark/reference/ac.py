@@ -187,3 +187,6 @@ def rotated(rows: np.ndarray, n: int, shift: int,
         out[i:i + len(p), 0] += d
         i += len(p)
     return out
+
+
+REFERENCE = Automaton

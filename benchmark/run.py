@@ -8,9 +8,11 @@ found by name in ``BENCHMARK.json``; its configuration, traffic mix and
 metrics in files of their own (``spec.py``).  The run generates its
 inputs from ``--seed``, builds the program's state and warms up (the
 set-up), measures a closed loop for ``--seconds`` (``loops/``), and
-then holds every answer the program gave to the plain reference
-(``reference/ac.py``, ``check.py``).  With ``--trace 1`` the window runs
-under ``torch.profiler`` and the stage timers, a chunked cell times one
+then holds every answer the program gave to the plain reference that
+the configuration names (``reference/<name>.py``, default ``ac``;
+``check.py``).  With ``--trace 1`` the window runs under
+``torch.profiler`` and the stage timers, the program's own count of its
+scan launches is read before and after it, a chunked cell times one
 request more a stage at a time, and the cell's per-layer metrics are
 printed in place of its end-to-end ones.
 
@@ -45,13 +47,12 @@ if str(ROOT) not in sys.path:
 
 from benchmark import check, clock, spec, work  # noqa: E402
 from benchmark import trace as tr  # noqa: E402
-from benchmark.reference.ac import Automaton  # noqa: E402
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "phfpfac_tpu")
 KIB = 1 << 10
-# --rehearse: every size cut so that the CPU runs a cell in seconds
-REHEARSAL = dict(dictionary=dict(count=400, text_words=400),
-                 traffic=dict(corpus_bytes=256 * KIB, chunk_bytes=64 * KIB,
+# --rehearse: every size cut so that the CPU runs a cell in seconds; the
+# dictionary's sizes are its kind's own (``REHEARSAL`` of its module)
+REHEARSAL = dict(traffic=dict(corpus_bytes=256 * KIB, chunk_bytes=64 * KIB,
                               input_bytes=32 * KIB))
 
 
@@ -63,7 +64,9 @@ def forbidden_modules() -> list:
 
 def shrink(cell: spec.Cell, sizes: dict) -> spec.Cell:
     cell = copy.deepcopy(cell)
-    cell.config["dictionary"].update(sizes.get("dictionary", {}))
+    d = cell.config["dictionary"]
+    d.update(spec.dictionary(d["kind"], cell.root).REHEARSAL)
+    d.update(sizes.get("dictionary", {}))
     for k, v in sizes.get("traffic", {}).items():
         if k in cell.traffic:
             cell.traffic[k] = v
@@ -105,6 +108,8 @@ class Run:
         self.card = self.device.type == "cuda"
         self.t0 = t0
         self.trace = None  # the window's Trace, with --trace 1
+        # scan-kernel launches the program counted in the traced window
+        self.launches = None
         self.setup_s = None
         self.states = None  # of the dictionary's whole trie
 
@@ -130,9 +135,11 @@ class Run:
                 with tr.capture(self.card) as cap, \
                         clock.stage_wrappers(clock.StageClock(
                             self.card, sync=False)):
+                    launched = tr.scan_launches()
                     with tr.window():
                         loop.window(self.seconds)
                         self.sync()
+                    self.launches = tr.scan_launches() - launched
                 self.trace = cap["trace"]
                 if self.card and not self.trace.scan_kernels:
                     raise RuntimeError(
@@ -144,6 +151,7 @@ class Run:
             self.sync()
             note(phase="window", **loop.summary(), **(dict(
                 scan_kernels=self.trace.scan_kernels,
+                scan_launches=self.launches,
                 scan_device_s=self.trace.scan_s) if self.trace else {}))
             peak = torch.cuda.max_memory_allocated() if self.card else 0
             loop.release()
@@ -151,7 +159,7 @@ class Run:
             if self.card:
                 torch.cuda.empty_cache()
         t_ref = time.perf_counter()
-        ac = Automaton(loop.pats)
+        ac = spec.reference(self.cell.config, root)(loop.pats)
         numbers, attempted, failed = check.check(loop.answers(ac))
         self.states = work.trie_states(loop.pats)
         note(phase="reference", seconds=time.perf_counter() - t_ref,

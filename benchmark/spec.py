@@ -2,8 +2,12 @@
 cells, each ``<config>.<traffic>``; a configuration is
 ``configs/<name>.json`` (its path as ``BENCHMARK.json`` gives it), a
 traffic mix ``traffic/<name>.json``, the closed loop it names
-``loops/<kind>.py``, and a metric the reader ``metrics/<name>.py``
-beside this file.  Adding a cell, a mix, a loop, a configuration or a
+``loops/<kind>.py``, the dictionary kind its configuration names
+``gen/dictionaries/<kind>.py``, the corpus kind its mix names
+``gen/corpora/<kind>.py``, the plain reference its configuration names
+``reference/<name>.py`` (``ac`` where it names none), and a metric the
+reader ``metrics/<name>.py`` beside this file.  Adding a cell, a mix, a
+loop, a dictionary or corpus kind, a reference, a configuration or a
 metric adds files and entries; no code names them."""
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ class Cell:
     traffic: dict  # the traffic mix's file, as read
     end_to_end: list  # BENCHMARK.json's metric entries that this cell reports
     per_layer: list
+    root: Path = ROOT  # the checkout its files and kinds are read from
 
 
 def load(root: Path = ROOT) -> dict:
@@ -54,13 +59,15 @@ def cell(name: str, root: Path = ROOT, spec: dict | None = None) -> Cell:
                 traffic=traffic,
                 end_to_end=[m for m in spec["end_to_end"]
                             if reports(m, name)],
-                per_layer=[m for m in spec["per_layer"] if reports(m, name)])
+                per_layer=[m for m in spec["per_layer"] if reports(m, name)],
+                root=root)
 
 
 def _module(folder: str, name: str, root: Path):
     path = Path(root) / HERE.name / folder / f"{name}.py"
     mod_spec = importlib.util.spec_from_file_location(
-        f"benchmark_{folder}_{name.replace('.', '_')}", path)
+        "benchmark_" + f"{folder}_{name}".replace("/", "_").replace(".", "_"),
+        path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
     return mod
@@ -75,3 +82,26 @@ def reader(metric: str, root: Path = ROOT):
 def loop(kind: str, root: Path = ROOT):
     """The ``Loop`` subclass of ``loops/<kind>.py``."""
     return _module("loops", kind, root).LOOP
+
+
+def dictionary(kind: str, root: Path = ROOT):
+    """The module ``gen/dictionaries/<kind>.py``: ``make(d) -> (patterns,
+    words)`` from a configuration's ``dictionary`` block, and the sizes
+    ``REHEARSAL`` that ``run.py --rehearse`` sets in that block."""
+    return _module("gen/dictionaries", kind, root)
+
+
+def corpus(kind: str, root: Path = ROOT):
+    """The function ``make(rng, config, traffic, patterns, words) ->
+    bytes`` of ``gen/corpora/<kind>.py``: ``traffic["corpus_bytes"]``
+    bytes, before the dictionary's patterns are planted."""
+    return _module("gen/corpora", kind, root).make
+
+
+def reference(config: dict, root: Path = ROOT):
+    """The plain reference the configuration names (``"reference"``,
+    default ``ac``): the class ``REFERENCE`` of ``reference/<name>.py``,
+    built from the patterns, with ``max_len`` and ``find(data, *,
+    segment, halo, starts_before)``."""
+    return _module("reference", config.get("reference", "ac"),
+                   root).REFERENCE

@@ -63,16 +63,17 @@ def stale(p, monkeypatch):
 
 
 def half(p, monkeypatch):
-    """Half of the batch left out: every other shard's matches."""
+    """Half of the batch left out, where rows are made: every other row
+    of each ``decode_hits`` call (a shard's, or on the ordered path a
+    chunk's)."""
     import phfpfac_tpu_torch.parallel.matcher as mm
 
-    real = mm.merge_flat_matches
+    real = mm.decode_hits
 
-    def merge(compiled, flats, input_size):
-        flats = [f if i % 2 == 0 else f[:0] for i, f in enumerate(flats)]
-        return real(compiled, flats, input_size)
+    def decode(*a, **kw):
+        return real(*a, **kw)[::2]
 
-    monkeypatch.setattr(mm, "merge_flat_matches", merge)
+    monkeypatch.setattr(mm, "decode_hits", decode)
 
 
 def altered(p, monkeypatch):

@@ -3,13 +3,15 @@ and the breakdown read: the device's busy time (the union of its
 kernels, copies and sets), the window's length, device time by operation,
 idle time by what the host was doing (the innermost ``stage:`` or
 ``bench:`` range open at the middle of each idle gap), and the scan
-kernels' launches and device seconds."""
+kernels' launches and device seconds; and the scan launches the program
+counts itself."""
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import re
+import sys
 
 import numpy as np
 import torch
@@ -18,6 +20,7 @@ DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "bench:window"  # the range around the measured window
 HOST_RANGES = ("stage:", "bench:")
 SCAN_KERNEL = "_scan_kernel"  # every scan kernel of the port's csrc/
+SCAN_OPS = "phfpfac_tpu_torch.ops."  # the modules that launch them
 
 
 @dataclasses.dataclass
@@ -32,6 +35,17 @@ class Trace:
     @property
     def idle_pct(self) -> float:
         return 100.0 * (1.0 - self.busy_s / self.window_s)
+
+
+def scan_launches() -> int:
+    """The scan-kernel launches the program has counted so far: the sum
+    of every ``launches*`` counter of the loaded modules of
+    ``phfpfac_tpu_torch.ops``, one a launch of a kernel named
+    ``*SCAN_KERNEL*`` (the CPU's plain scans count none)."""
+    return sum(v for name, mod in list(sys.modules.items())
+               if name.startswith(SCAN_OPS)
+               for k, v in vars(mod).items()
+               if k.startswith("launches") and type(v) is int)
 
 
 def short_name(name: str) -> str:
